@@ -4,19 +4,30 @@
 
 Phases, each printing one JSON line:
   1. card + build: the card's name and power limit; nvcc builds the
-     compositor kernels from gsdx_torch/csrc.
-  2. kernels: each kernel variant (forward, forward with presort, backward,
-     backward with presort) against its plain PyTorch version on real 720p
-     tile inputs (8192 and 16384 Gaussians), with CUDA-event times and the
-     card's lower bound for the same work.
+     compositor and GNN kernel libraries from gsdx_torch/csrc, in parallel.
+  2. kernels: each compositor variant (forward, forward with presort,
+     backward, backward with presort) against its plain PyTorch version on
+     real 720p tile inputs (8192 and 16384 Gaussians), and the fused GNN
+     forward against its plain version at rope width (125 samples, 128
+     node slots, 504 edge slots; trained weights, edges of the committed
+     trajectory) and cloth width (256 / 1200, random init), with CUDA-event
+     times and the card's lower bound for the same work.
   3. rasterize: fwd+bwd Mpix/s at 5k, 16k and 65k Gaussians, 720p.
   4. slice: `track_sequence` at 4 cameras, 720p, capacity 8192: t=0 with
      clone/split/prune on a shortened schedule, then t=1 with frozen bins
-     and the presorting compositor; the launch counters of every kernel
+     and the presorting compositor; the launch counters of every compositor
      variant must be > 0 for this run.
-  5. profile: `torch.profiler` breakdown of a 5k rasterize fwd+bwd and of
-     one tracking iteration: device time by kernel, device idle share.
-  6. cli: `python -m gsdx_torch.apps.track` on a small synthetic episode.
+  5. plan: one MPPI `trajectory_optimization` at rope width (trained
+     weights, 100 particles, max_nR 500, 1000 samples, 8 repeat-sorted
+     chunks), cut in depth to 2 update iterations; the GNN kernels' launch
+     counters must be > 0 for this run; the fused rollout against the
+     module rollout on 16 samples.
+  6. profile: `torch.profiler` breakdown of a 5k rasterize fwd+bwd, of one
+     tracking iteration and of one MPPI iteration: device time by kernel,
+     device idle share.
+  7. cli: `python -m gsdx_torch.apps.track` on a small synthetic episode,
+     and `python -m gsdx_torch.apps.plan --env fake` on the committed
+     rope checkpoint.
 
 The line before the last holds the kernel table; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero with no result.
@@ -30,6 +41,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -37,6 +49,7 @@ import torch
 H, W = 720, 1280
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_FLOP_S = 67e12  # H100 SXM f32 outside the tensor cores
+PEAK_BF16_FLOP_S = 989e12  # H100 SXM bf16 tensor cores, dense
 MUFU_PER_SM_CLK = 16
 SMS = 132
 REL_TOL = 1e-4  # allclose(rtol, atol) for kernel vs plain, f32 sums in another order
@@ -169,18 +182,23 @@ BWD_FLOPS_VIS = lambda nacc: 30 + 4 * nacc  # noqa: E731
 
 
 def phase_build() -> dict:
-    from gsdx_torch.kernels import composite
+    """One nvcc per kernel source, all started together."""
+    from gsdx_torch.kernels import composite, gnn_forward
 
+    libs = (composite.LIBRARY, gnn_forward.LIBRARY)
     t0 = time.perf_counter()
-    log = composite.build()
-    composite.load_library()
+    with ThreadPoolExecutor(len(libs)) as pool:
+        logs = list(pool.map(lambda lib: lib.build(), libs))
+    for lib in libs:
+        lib.load()
     return {"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-            "library": composite.library_path().name,
-            "ptxas": [ln.strip() for ln in log.splitlines()
+            "libraries": [lib.path().name for lib in libs],
+            "ptxas": [ln.strip() for log in logs for ln in log.splitlines()
                       if "Compiling entry" in ln or "registers" in ln
                       or "spill" in ln],
             "kernels": ["composite_fwd", "composite_fwd_presort",
-                        "composite_bwd", "composite_bwd_presort"]}
+                        "composite_bwd", "composite_bwd_presort",
+                        "gnn_linear", "gnn_edge_first", "gnn_message"]}
 
 
 def compare_kernels(n: int, presort: bool, clk_mhz: float,
@@ -269,6 +287,125 @@ def phase_kernels(clk_mhz: float) -> list[dict]:
             for r in compare_kernels(n, presort, clk_mhz, saturating):
                 emit(dict(r, phase="kernels"))
                 rows.append(r)
+    return rows
+
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+ROPE_CKPT = os.path.join(REPO, "benchmarks/out/generalization/checkpoints/latest.ckpt")
+TRAJ = os.path.join(REPO, "benchmarks/out/pipeline/ckpts/param_downsampled.npy")
+GNN_TOL = 1e-4  # of the output's largest entry: f32 sums in another order
+
+
+def rope_model(device="cuda"):
+    from gsdx_torch.dynamics.model import DynamicsPredictor, ModelConfig, flax_params
+    from gsdx_torch.dynamics.model import load_flax_params
+    from gsdx_torch.io.checkpoint import load_checkpoint
+
+    model = DynamicsPredictor(ModelConfig())
+    tree = load_checkpoint(ROPE_CKPT, target=flax_params(model))
+    return load_flax_params(model, tree).to(device).eval()
+
+
+def trajectory_particles(n_obj: int) -> torch.Tensor:
+    """(16, n_obj, 3) frames of the committed trajectory at n_obj
+    FPS-sampled particles of its first frame."""
+    from gsdx_torch.kernels.fps import farthest_point_sampling
+
+    traj = torch.as_tensor(np.load(TRAJ), device="cuda")
+    idx = farthest_point_sampling(traj[0], n_obj)
+    return traj[:, idx]
+
+
+def gnn_inputs(B: int, n_obj: int, n_pad: int, max_nR: int, topk: int,
+               adj: float, connect_all: bool):
+    """One chunk of the rollout's GNN inputs: sample b's history is three
+    consecutive frames of the committed trajectory starting at b % 14, its
+    pusher a random point near the object; edges by the port's
+    `construct_edge_indices_batch` on the last frame."""
+    from gsdx_torch.graph.edges import construct_edge_indices_batch
+
+    frames = trajectory_particles(n_obj)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    N = n_obj + 1
+    starts = torch.arange(B, device="cuda") % 14
+    hist = torch.stack([frames[starts + h] for h in range(3)], 1)  # (B, 3, n_obj, 3)
+    tool = hist[:, :, :1] + 0.03 * torch.randn(B, 1, 1, 3, device="cuda", generator=g)
+    states = torch.cat([hist, tool], 2)  # (B, 3, N, 3)
+    mask = torch.ones(B, N, dtype=torch.bool, device="cuda")
+    tool_mask = torch.zeros_like(mask)
+    tool_mask[:, n_obj] = True
+    recv, send = construct_edge_indices_batch(states[:, -1], adj, mask, tool_mask,
+                                              n_obj=n_obj, topk=topk, max_nR=max_nR,
+                                              connect_all=connect_all)
+    e_pad = -(-max_nR // 8) * 8
+    fill = torch.full((B, e_pad - max_nR), -1, dtype=torch.int32, device="cuda")
+    recv, send = torch.cat([recv, fill], 1), torch.cat([send, fill], 1)
+    attrs = torch.zeros(B, n_pad, 2, device="cuda")
+    attrs[:, :n_obj, 0] = 1
+    attrs[:, n_obj:N, 1] = 1
+    action = torch.zeros(B, n_pad, 3, device="cuda")
+    action[:, n_obj, :2] = 0.01 * torch.randn(B, 2, device="cuda", generator=g)
+    st = torch.zeros(B, n_pad, 9, device="cuda")
+    st[:, :N] = states.transpose(1, 2).reshape(B, N, 9)
+    gi = torch.zeros(B, n_pad, 1, device="cuda")
+    gi[:, :n_obj] = 1
+    return [attrs, action, st, gi, recv.contiguous(), send.contiguous()]
+
+
+def compare_gnn(name: str, packed, ins, n_obj: int) -> dict:
+    """The fused forward's kernels against `gnn_forward_plain`."""
+    from gsdx_torch.kernels import gnn_forward as G
+
+    out_k = G.fused_gnn_forward(packed, *ins)
+    out_p = G.gnn_forward_plain(packed, *ins)
+    torch.cuda.synchronize()
+    scale = float(out_p.abs().max())
+    err = float((out_k - out_p).abs().max())
+    if not (torch.isfinite(out_k).all() and err <= GNN_TOL * scale):
+        raise AssertionError(f"{name}: GNN kernel vs plain max |err| {err} "
+                             f"> {GNN_TOL} * {scale}")
+    ms_k = cuda_ms(lambda: G.fused_gnn_forward(packed, *ins))
+    ms_p = cuda_ms(lambda: G.gnn_forward_plain(packed, *ins), reps=5)
+    B, n_pad, _ = ins[0].shape
+    E = ins[4].shape[1]
+    F = packed.w2r.shape[0]
+    n_edges = int((ins[4] >= 0).sum())
+    # the work this input needs: real node rows and valid edge slots
+    flops = G.forward_flops(B * (n_obj + 1), n_edges, F, 9, 3)
+    flops_padded = G.forward_flops(B * n_pad, B * E, F, 9, 3)
+    bytes_moved = (sum(t.numel() * t.element_size() for t in ins)
+                   + sum(t.numel() * t.element_size()
+                         for t in (getattr(packed, f) for f in G.GSDX_FIELDS))
+                   + out_k.numel() * 4)
+    t_bytes = bytes_moved / PEAK_BYTES_S
+    t_bf16 = flops / PEAK_BF16_FLOP_S
+    return {"name": name, "B": B, "n_pad": n_pad, "E": E, "n_obj": n_obj,
+            "valid_edges": n_edges, "gflop_needed": flops / 1e9,
+            "gflop_padded": flops_padded / 1e9, "max_abs_err": err,
+            "max_abs_out": scale, "ms": ms_k, "plain_ms": ms_p,
+            "bound_ms": 1e3 * max(t_bytes, t_bf16),
+            "bound_by": "bytes" if t_bytes >= t_bf16 else "operations",
+            "bound_rate": "bf16 tensor cores, 989 TFLOP/s",
+            "bound_ms_f32": 1e3 * max(t_bytes, flops / PEAK_F32_FLOP_S),
+            "achieved_tflop_s": flops / (ms_k * 1e-3) / 1e12}
+
+
+def phase_gnn_kernels() -> list[dict]:
+    """Kernel #3 at the rope shapes the plan phase gives it (one 125-sample
+    chunk of 1000) and at the cloth family's 256 / 1200 shapes."""
+    from gsdx_torch.dynamics.model import DynamicsPredictor, ModelConfig, flax_params
+    from gsdx_torch.kernels import gnn_forward as G
+
+    rope = G.pack_gnn_params(flax_params(rope_model(), as_numpy=False), device="cuda")
+    rows = [compare_gnn("gnn_forward_rope", rope,
+                        gnn_inputs(125, 100, 128, 500, 5, 0.08, False), 100)]
+    cloth = DynamicsPredictor(ModelConfig(state_dim=1, motion_dim=3),
+                              generator=torch.Generator().manual_seed(0))
+    packed = G.pack_gnn_params(flax_params(cloth, as_numpy=False), device="cuda")
+    rows.append(compare_gnn("gnn_forward_cloth", packed,
+                            gnn_inputs(125, 150, 256, 1200, 6, 0.075, True), 150))
+    for r in rows:
+        emit(dict(r, phase="kernels"))
     return rows
 
 
@@ -407,6 +544,102 @@ def phase_slice(card: str) -> dict:
     return row
 
 
+PLAN_SPEC = dict(n_his=3, max_nobj=100, max_nR=500, topk=5, adj_thresh=0.08,
+                 sort_chunks=8)
+
+
+def plan_setup(n_sample: int, n_update_iter: int, model=None):
+    """The plan CLI's planner at rope width on the committed trajectory:
+    the current state is frame 0 at 100 particles, the target frame 12.
+    The rollout passed to the planner sums each batch's repeat counts."""
+    from gsdx_torch.plan.actions import decode_action
+    from gsdx_torch.plan.cost import running_cost
+    from gsdx_torch.plan.dynamics_rollout import RolloutSpec, make_batched_rollout
+    from gsdx_torch.plan.planner import MPPIConfig, Planner
+    from gsdx_torch.realworld.env import WORKSPACE_BBOX
+
+    model = model or rope_model()
+    frames = trajectory_particles(100)
+    state, target = frames[0].contiguous(), frames[12].contiguous()
+    rollout = make_batched_rollout(model, RolloutSpec(**PLAN_SPEC))
+    bbox = torch.as_tensor(WORKSPACE_BBOX, device="cuda")
+    record = {"needed": 0}
+
+    def counting_rollout(s, acts, **kw):
+        # the unit pushes the samples need (the action limits keep each
+        # repeat count within max_repeat)
+        record["needed"] += int(decode_action(acts)[1].sum())
+        return rollout(s, acts, **kw)
+
+    planner = Planner(MPPIConfig(n_sample=n_sample, n_update_iter=n_update_iter),
+                      counting_rollout,
+                      lambda ss, aa, s: running_cost(ss, aa, s, target, bbox),
+                      device="cuda")
+    init = torch.tensor([[0.3, 0.0, 0.0, 10.0]], device="cuda")
+    return planner, state, init, record
+
+
+def phase_plan(card: str) -> dict:
+    """One `trajectory_optimization` at rope width, 1000 samples, 2 update
+    iterations (the path `apps/plan.py` runs, cut in depth only)."""
+    from gsdx_torch.kernels import gnn_forward as G
+    from gsdx_torch.plan.actions import sample_action_seq
+    from gsdx_torch.plan.dynamics_rollout import RolloutSpec, make_batched_rollout
+
+    model = rope_model()
+    planner, state, init, record = plan_setup(1000, 2, model)
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    torch.cuda.synchronize()
+    G.reset_launches()
+    t0 = time.perf_counter()
+    out = planner.trajectory_optimization(gen, state, init)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(G.LAUNCHES)
+    # each fused forward evaluates one push of every sample in a chunk
+    evaluated = launches["gnn_forward"] * (1000 // PLAN_SPEC["sort_chunks"])
+    iter_best = out["iter_best"].cpu().numpy()
+    row = {"phase": "plan", "card": card, "n_sample": 1000, "n_obj": 100,
+           "max_nR": 500, "sort_chunks": 8, "n_update_iter": 2,
+           "launches": launches, "seconds": seconds,
+           "seconds_per_iter": seconds / 2,
+           "push_steps": launches["gnn_forward"],
+           "sample_pushes_needed": record["needed"],
+           "sample_pushes_evaluated": evaluated,
+           "sample_pushes_per_s": record["needed"] / seconds,
+           "evaluated_sample_pushes_per_s": evaluated / seconds,
+           "iter_best": iter_best.tolist(),
+           "best_reward": float(out["best_reward"]),
+           "best_act": out["act_seq"].cpu().numpy().tolist()}
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"GNN kernel {k} never launched in the plan phase")
+    if not (np.isfinite(iter_best).all() and np.isfinite(row["best_reward"])):
+        raise AssertionError("non-finite rewards in the plan phase")
+    if not row["best_reward"] >= iter_best[0]:
+        raise AssertionError("the best reward fell below iteration 0's best")
+
+    # the fused rollout against the module rollout on 16 samples, the
+    # module's weights rounded to bf16 and back as the kernels store them
+    model_bf = rope_model()
+    with torch.no_grad():
+        for p in model_bf.parameters():
+            p.copy_(p.to(torch.bfloat16).float())
+    acts = sample_action_seq(torch.Generator(device="cuda").manual_seed(1), init,
+                             planner.lower, planner.upper, 16)
+    spec = dict(PLAN_SPEC, sort_chunks=1)
+    with torch.no_grad():
+        fused = make_batched_rollout(model, RolloutSpec(**spec))(state, acts)
+        module = make_batched_rollout(model_bf, RolloutSpec(**spec, fused="off"))(state, acts)
+    err = float((fused["state_seqs"] - module["state_seqs"]).abs().max())
+    row["fused_vs_module_max_abs_err"] = err
+    emit(row)
+    # tests/test_gnn_fused.py's bf16-class tolerance for chained pushes
+    if not err <= 2e-3:
+        raise AssertionError(f"fused rollout vs module rollout: {err} > 2e-3")
+    return row
+
+
 def device_profile(fn, what: str, steps: int = 5, top: int = 12) -> dict:
     """Where one call of ``fn`` spends its time: the wall time of ``steps``
     calls after a warm-up, then `torch.profiler` over as many calls for the
@@ -444,8 +677,9 @@ def device_profile(fn, what: str, steps: int = 5, top: int = 12) -> dict:
 
 
 def phase_profile() -> list[dict]:
-    """Device breakdown of a 5k-Gaussian 720p rasterize fwd+bwd and of one
-    t=0 tracking iteration of the slice's scene (densification off)."""
+    """Device breakdown of a 5k-Gaussian 720p rasterize fwd+bwd, of one t=0
+    tracking iteration of the slice's scene (densification off) and of one
+    MPPI iteration of the plan phase."""
     from gsdx_torch.core.gaussians import init_gaussian_params, init_tracking_variables
     from gsdx_torch.kernels.knn import knn
     from gsdx_torch.render.rasterize import RasterizeConfig, rasterize
@@ -481,6 +715,12 @@ def phase_profile() -> list[dict]:
 
     rows.append(device_profile(
         track_iter, "tracking iteration t=0, 4 cameras, 720p, capacity 8192"))
+
+    planner, state, init, _ = plan_setup(1000, 1)
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    rows.append(device_profile(
+        lambda: planner.trajectory_optimization(gen, state, init),
+        "MPPI iteration, rope, 1000 samples, 100 particles, 8 chunks", steps=2))
     for r in rows:
         emit(r)
     return rows
@@ -553,6 +793,35 @@ def phase_cli() -> dict:
     return row
 
 
+def phase_plan_cli() -> dict:
+    """The planning CLI on the simulated environment, from a scratch
+    working directory whose log/rope/checkpoints/latest.ckpt links to the
+    committed rope checkpoint (the CLI reads `<out_dir>/checkpoints`)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_dir = os.path.join(tmp, "log", "rope", "checkpoints")
+        os.makedirs(ckpt_dir)
+        os.symlink(ROPE_CKPT, os.path.join(ckpt_dir, "latest.ckpt"))
+        out = os.path.join(tmp, "out")
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        t_start = time.perf_counter()
+        subprocess.run(
+            [sys.executable, "-m", "gsdx_torch.apps.plan", "--config",
+             os.path.join(REPO, "configs", "rope.yaml"), "--env", "fake",
+             "--n_actions", "1", "--n_chunks", "1", "--n_sample", "200",
+             "--out", out], check=True, cwd=tmp, env=env)
+        res = np.load(os.path.join(out, "interaction_0.npz"))
+        with open(os.path.join(out, "stats.txt")) as f:
+            stats = f.read().strip()
+        if res["action"].shape != (4,) or not np.isfinite(float(res["reward"])):
+            raise AssertionError("bad interaction_0.npz from the plan CLI")
+        row = {"phase": "cli_plan", "seconds": time.perf_counter() - t_start,
+               "action": res["action"].tolist(), "reward": float(res["reward"]),
+               "chamfer_before": float(res["chamfer_before"]),
+               "chamfer_after": float(res["chamfer_after"]), "stats": stats}
+    emit(row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -567,10 +836,13 @@ def main() -> int:
           **info})
     emit(phase_build())
     rows = phase_kernels(info["max_sm_mhz"])
+    gnn_rows = phase_gnn_kernels()
     phase_rasterize(info["nvidia_smi"])
     slice_row = phase_slice(info["nvidia_smi"])
+    plan_row = phase_plan(info["nvidia_smi"])
     phase_profile()
     phase_cli()
+    phase_plan_cli()
 
     table = []
     for r in rows:
@@ -586,6 +858,15 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+    rope = gnn_rows[0]  # the plan path's shapes
+    table.append({
+        "name": "gnn_forward", "route": "cuda",
+        "source": "gsdx_torch/csrc/gnn_forward.cu",
+        "replaces": "gsdx/kernels/gnn_forward.py:180",
+        "launches": plan_row["launches"]["gnn_forward"],
+        "max_abs_err": rope["max_abs_err"], "ms": rope["ms"],
+        "plain_ms": rope["plain_ms"], "bound_ms": rope["bound_ms"],
+        "bound_by": rope["bound_by"], "library_ms": None})
     print(info["nvidia_smi"], flush=True)
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -10,8 +10,9 @@ Four pieces:
     Pallas `_fwd_kernel` and `_bwd_kernel`). A CUDA tensor launches the
     kernel or raises; only CPU tensors take the plain version.
   * `LAUNCHES` — per-variant kernel launch counts.
-  * the lazy build: `nvcc` compiles the source into a shared library with a
-    plain C interface at first use, loaded with ctypes.
+  * `LIBRARY`, the lazy build (`kernels/_build.py`): `nvcc` compiles the
+    source into a shared library with a plain C interface at first use,
+    loaded with ctypes.
 
 Tile features are (T, FEAT_DIM, K) f32 columns, one per listed Gaussian:
   0 mean_x | 1 mean_y | 2 conic_a | 3 conic_b | 4 conic_c | 5 opacity |
@@ -27,15 +28,10 @@ rank and the sorted features that the backward consumes.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
-
 import torch
 import torch.utils.checkpoint
+
+from gsdx_torch.kernels._build import I32, PTR, CudaLibrary
 
 FEAT_DIM = 16
 ALPHA_MIN = 1.0 / 255.0
@@ -227,66 +223,11 @@ def composite_bwd_torch(feats, counts, nproc, g_accum, g_logt, rank=None, *,
 # CUDA kernels: lazy build + wrappers
 # --------------------------------------------------------------------------
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "composite.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_lib = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-    return found
-
-
-def library_path() -> Path:
-    digest = hashlib.sha1(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                          ).hexdigest()[:12]
-    return BUILD_DIR / f"libgsdx_composite_{digest}.so"
-
-
-def build() -> str:
-    """Run `nvcc` on the kernel source unless the library for this exact
-    source is already built. Returns the compiler's output (register and
-    spill report), empty if nothing was built. Raises if the compile failed."""
-    out = library_path()
-    if out.exists():
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                         capture_output=True, text=True, check=False)
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-    os.replace(tmp, out)
-    return log
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, once per process."""
-    global _lib
-    if _lib is None:
-        build()
-        lib = ctypes.CDLL(str(library_path()))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.gsdx_composite_fwd.argtypes = [ptr] * 7 + [i32] * 9 + [ptr]
-        lib.gsdx_composite_fwd.restype = i32
-        lib.gsdx_composite_bwd.argtypes = [ptr] * 8 + [i32] * 8 + [ptr]
-        lib.gsdx_composite_bwd.restype = i32
-        lib.gsdx_cuda_error_string.argtypes = [i32]
-        lib.gsdx_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
-
-
-def _check_launch(lib, err: int, what: str) -> None:
-    if err != 0:
-        msg = lib.gsdx_cuda_error_string(err).decode()
-        raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
+LIBRARY = CudaLibrary(
+    "gsdx_composite", "composite.cu",
+    {"gsdx_composite_fwd": [PTR] * 7 + [I32] * 9 + [PTR],
+     "gsdx_composite_bwd": [PTR] * 8 + [I32] * 8 + [PTR]},
+    error_string="gsdx_cuda_error_string")
 
 
 def _check_inputs(tile_h, tile_w, n_accum, sub_chunk, K, **tensors):
@@ -335,7 +276,7 @@ def composite_fwd(tile_feats: torch.Tensor, counts: torch.Tensor, *,
         raise ValueError("tile_feats must be (T, 16, K) and counts (T,)")
     _check_inputs(tile_h, tile_w, n_accum, sub_chunk, K,
                   tile_feats=tile_feats, counts=counts)
-    lib = load_library()
+    lib = LIBRARY.load()
     P = tile_h * tile_w
     accum = torch.empty((T, n_accum, P), device=tile_feats.device)
     logt = torch.empty((T, 1, P), device=tile_feats.device)
@@ -352,7 +293,7 @@ def composite_fwd(tile_feats: torch.Tensor, counts: torch.Tensor, *,
         sorted_feats.data_ptr() if presort else None,
         T, K, tiles_x, tile_h, tile_w, n_accum, sub_chunk, int(presort),
         int(early_stop), stream)
-    _check_launch(lib, err, "composite_fwd")
+    LIBRARY.check(err, "composite_fwd")
     LAUNCHES["fwd_presort" if presort else "fwd"] += 1
     return accum, logt, nproc, rank, sorted_feats
 
@@ -384,7 +325,7 @@ def composite_bwd(feats: torch.Tensor, counts: torch.Tensor,
     if rank is not None:
         tensors["rank"] = rank
     _check_inputs(tile_h, tile_w, n_accum, sub_chunk, K, **tensors)
-    lib = load_library()
+    lib = LIBRARY.load()
     grad = torch.empty_like(feats)
     stream = torch.cuda.current_stream(feats.device).cuda_stream
     err = lib.gsdx_composite_bwd(
@@ -393,6 +334,6 @@ def composite_bwd(feats: torch.Tensor, counts: torch.Tensor,
         rank.data_ptr() if rank is not None else None, grad.data_ptr(),
         T, K, tiles_x, tile_h, tile_w, n_accum, sub_chunk,
         int(rank is not None), stream)
-    _check_launch(lib, err, "composite_bwd")
+    LIBRARY.check(err, "composite_bwd")
     LAUNCHES["bwd_presort" if rank is not None else "bwd"] += 1
     return grad

@@ -6,12 +6,17 @@ Adam step. For t > 0 the Gaussian set is fixed and every camera's tile
 bins are rebuilt once per block of `bin_refresh` iterations (with a
 `bin_margin_px` coverage margin) and held frozen in between; the
 compositor restores depth order inside the kernel every step. Timestep
-warm starts, KNN tables and snapshots run between timesteps.
+warm starts, KNN tables and snapshots run between timesteps. With a
+``state_path`` every timestep after the first is checkpointed (flax msgpack
+through `io/checkpoint.py`) and a run can resume from it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import pickle
 import time
 from typing import Callable, NamedTuple, Optional
 
@@ -24,6 +29,9 @@ from gsdx_torch.core.gaussians import (
     GaussianParams,
     TrackingVariables,
     init_tracking_variables,
+    params_from_numpy,
+    to_numpy,
+    variables_from_numpy,
 )
 from gsdx_torch.core.transforms import quat_conjugate, quat_normalize
 from gsdx_torch.kernels.knn import knn
@@ -236,6 +244,45 @@ def snapshot_params(params: GaussianParams, full: bool) -> dict:
     return out
 
 
+def save_tracking_state(path: str, t: int, params: GaussianParams,
+                        opt_state: AdamState, variables: TrackingVariables,
+                        generator: torch.Generator, rng: np.random.Generator,
+                        output_params: list) -> None:
+    """Mid-sequence checkpoint: the state after timestep ``t`` (params,
+    Adam state, tracking variables, the split-noise generator's state and
+    the camera-order RNG's state) in ``path``; the host snapshots so far in
+    ``path + ".outputs"`` (a pickle, as gsdx writes it)."""
+    from gsdx_torch.io.checkpoint import save_checkpoint
+
+    save_checkpoint(path, {
+        "t": np.asarray(t, np.int32), "params": to_numpy(params),
+        "opt_state": to_numpy(opt_state), "variables": to_numpy(variables),
+        "key": generator.get_state().numpy(),
+        "camera_rng": json.dumps(rng.bit_generator.state),
+    })
+    with open(path + ".outputs", "wb") as f:
+        pickle.dump(output_params, f)
+
+
+def load_tracking_state(path: str, device: str | torch.device = "cpu"):
+    """Read a `save_tracking_state` checkpoint. Returns (t, params,
+    opt_state, variables, generator, rng, output_params) with the tensors
+    on ``device``."""
+    from gsdx_torch.io.checkpoint import load_checkpoint
+
+    state = load_checkpoint(path)
+    generator = torch.Generator(device=device)
+    generator.set_state(torch.from_numpy(np.asarray(state["key"], np.uint8)))
+    rng = np.random.default_rng()
+    rng.bit_generator.state = json.loads(state["camera_rng"])
+    with open(path + ".outputs", "rb") as f:
+        outputs = pickle.load(f)
+    return (int(state["t"]), params_from_numpy(state["params"], device),
+            AdamState.from_numpy(state["opt_state"], device),
+            variables_from_numpy(state["variables"], device), generator, rng,
+            outputs)
+
+
 def track_sequence(
     params: GaussianParams,
     cams: Camera,
@@ -247,6 +294,8 @@ def track_sequence(
     progress: bool = False,
     on_timestep: Optional[Callable[[int, float, dict], None]] = None,
     device: str | torch.device = "cuda",
+    state_path: Optional[str] = None,
+    resume: bool = False,
 ):
     """Track a sequence; returns per-timestep host parameter snapshots.
 
@@ -254,6 +303,8 @@ def track_sequence(
     t -> (C, 3, H, W). ``on_timestep(t, seconds, logs)`` runs after each
     timestep's fit (seconds measured to a device synchronize). Params,
     cameras and images move to ``device``; "cuda" raises without a GPU.
+    ``state_path`` checkpoints the state after every timestep t >= 1;
+    ``resume`` continues from that checkpoint when it exists.
     """
     device = require_device(device)
     params = GaussianParams(**{f: getattr(params, f).to(device) for f in FIELDS})
@@ -272,9 +323,17 @@ def track_sequence(
                                dtype=torch.float32, device=device)
 
     output_params = []
+    start_t = 0
+    if resume and state_path and os.path.exists(state_path):
+        (t_done, params, opt_state, variables, generator, rng,
+         output_params) = load_tracking_state(state_path, device)
+        start_t = t_done + 1
+        lrs = tracking_lrs(scene_radius, post_first_timestep=True)
+        if progress:
+            print(f"[track] resumed at t={start_t}")
     fit_first = make_fit_timestep(cfg, is_initial=True, num_iters=cfg.iters_first)
     fit_rest = None
-    for t in range(num_timesteps):
+    for t in range(start_t, num_timesteps):
         t_ims, t_segs = frame(ims, t), frame(segs, t)
         is_initial = t == 0
         if not is_initial:
@@ -303,6 +362,12 @@ def track_sequence(
             print(f"[track] t={t} loss={float(logs['loss'][-1]):.5f} "
                   f"psnr={float(logs['psnr'][-1]):.3f} "
                   f"pts={int(logs['num_pts'][-1])}")
+        if state_path:
+            # densification telemetry, as gsdx writes it
+            state_dir = os.path.dirname(state_path) or "."
+            os.makedirs(state_dir, exist_ok=True)
+            with open(os.path.join(state_dir, "num_pts.txt"), "w") as f:
+                f.write(f"Number of points: {int(logs['num_pts'][-1])}\n")
         if is_initial:
             params, variables = compact_params(params, variables)
             variables = initialize_post_first_timestep(params, variables,
@@ -310,4 +375,7 @@ def track_sequence(
             opt_state = adam.init(params)
             lrs = tracking_lrs(scene_radius, post_first_timestep=True)
         output_params.append(snapshot_params(params, full=is_initial))
+        if state_path and not is_initial:
+            save_tracking_state(state_path, t, params, opt_state, variables,
+                                generator, rng, output_params)
     return output_params

@@ -108,7 +108,11 @@ def test_init_params_and_carry_across_round_trip(rng):
 
 
 def test_cuda_entry_points_refuse_without_a_card():
+    from gsdx_torch.apps.plan import main as plan_main
     from gsdx_torch.apps.track import main as track_main
+    from gsdx_torch.plan.planner import MPPIConfig, Planner
+    from gsdx_torch.realworld.env import FakeEnv
+    from gsdx_torch.realworld.perception import PerceptionModule
     from gsdx_torch.render.renderer import Renderer
     from gsdx_torch.track.trainer import track_sequence
 
@@ -119,7 +123,11 @@ def test_cuda_entry_points_refuse_without_a_card():
     # the entry points default to the card and never fall back to the CPU
     for call in (lambda: require_device("cuda"), Renderer,
                  lambda: track_sequence(None, None, None, None, 1),
-                 lambda: track_main(["--sequence", "s", "--exp_name", "e"])):
+                 lambda: track_main(["--sequence", "s", "--exp_name", "e"]),
+                 lambda: plan_main(["--config", "configs/rope.yaml"]),
+                 lambda: FakeEnv(np.zeros((4, 3)), np.zeros((4, 3))),
+                 PerceptionModule,
+                 lambda: Planner(MPPIConfig(), None, None)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
 
@@ -135,6 +143,8 @@ def _imported_modules(path):
 
 
 def test_port_imports_no_jax_flax_or_gsdx():
+    """Nor PyYAML or msgpack, which the machine with the card lacks: the
+    port reads its configs and checkpoints with its own code."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "gsdx_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
@@ -143,6 +153,6 @@ def test_port_imports_no_jax_flax_or_gsdx():
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            if top in ("jax", "jaxlib", "flax", "gsdx"):
+            if top in ("jax", "jaxlib", "flax", "gsdx", "yaml", "msgpack"):
                 bad.append(f"{os.path.relpath(path, REPO)}: {mod}")
     assert not bad, bad

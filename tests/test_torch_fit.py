@@ -217,3 +217,37 @@ def test_track_cli_writes_gsdx_params(tmp_path, rng):
     p0 = init_gaussian_params(pt_cld, np.full(n, 1e-3, np.float32))
     np.testing.assert_array_equal(params["rgb_colors"][0],
                                   p0.rgb_colors[:n].numpy())
+
+
+def test_track_sequence_resumes_to_the_same_parameters(tmp_path, rng):
+    """Save mid-sequence, load, continue: the same snapshots as one
+    uninterrupted run (the checkpoint carries the split-noise generator's
+    and the camera-order RNG's states, so the CPU run repeats exactly)."""
+    jp, ims, segs = _scene(rng, capacity=128)
+    seq_ims = np.stack([ims, ims * 0.98, ims])
+    seq_segs = np.stack([segs, segs, segs])
+    cfg = ttr.TrackingConfig(raster=CFG_T, iters_first=6, iters_rest=4, num_knn=4,
+                             bin_refresh=2)
+    p0 = params_from_numpy(np_tree(jp))
+    whole = ttr.track_sequence(p0, _port_cams(), seq_ims, seq_segs, 3, cfg, device="cpu")
+    path = str(tmp_path / "state" / "track.ckpt")
+    first = ttr.track_sequence(p0, _port_cams(), seq_ims, seq_segs, 2, cfg, device="cpu",
+                               state_path=path)
+    assert os.path.exists(path) and os.path.exists(path + ".outputs")
+    assert (tmp_path / "state" / "num_pts.txt").read_text().startswith("Number of points")
+    t, params, opt_state, variables, gen, cam_rng, outputs = ttr.load_tracking_state(path)
+    assert t == 1 and len(outputs) == 2 and int(opt_state.count) == 4
+    assert params.capacity == 128 and variables.neighbor_indices.dtype == torch.int64
+    # the checkpoint is flax msgpack: gsdx's reader takes it
+    import flax.serialization
+    with open(path, "rb") as f:
+        raw = flax.serialization.msgpack_restore(f.read())
+    assert int(raw["t"]) == 1 and raw["params"]["means3d"].shape == (128, 3)
+    resumed = ttr.track_sequence(p0, _port_cams(), seq_ims, seq_segs, 3, cfg,
+                                 device="cpu", state_path=path, resume=True)
+    assert len(resumed) == 3
+    for snap_r, snap_w, snap_f in zip(resumed, whole, first + [None]):
+        for k in snap_w:
+            np.testing.assert_array_equal(snap_r[k], snap_w[k], err_msg=k)
+            if snap_f is not None:
+                np.testing.assert_array_equal(snap_f[k], snap_w[k], err_msg=k)

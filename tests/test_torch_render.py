@@ -187,7 +187,10 @@ def test_plain_compositor_matches_pallas_kernels(rng, saturating, presort, sub):
     if saturating:
         assert (nproc < np.ceil(counts / sub)).any(), "early stop never fired"
     # f32 sums of <= 128 terms in another order (sequential cumsum vs the
-    # kernel's triangular-matmul prefix): 1e-5 absolute on values <= ~10
+    # kernel's triangular-matmul prefix): 1e-5 absolute on values <= ~10.
+    # Measured on the [False-False-64] scene: 2.4e-7 (accum) and 3.6e-7
+    # (log T), the same at 1 to 8 torch threads, and 60 of 60 repeated
+    # runs (alone and under -n 6 --dist loadfile) passed
     np.testing.assert_allclose(out_t[0].numpy(), np.asarray(out_j[0]),
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(out_t[1].numpy(), np.asarray(out_j[1]),
@@ -212,7 +215,9 @@ def test_plain_compositor_matches_pallas_kernels(rng, saturating, presort, sub):
     # reverse-mode sums over 1024 pixels in another order: 1e-4 of each
     # feature row's largest entry (the conic rows grow with dx^2 and would
     # swamp the mean and opacity rows under one scale; all-zero pad rows
-    # are held to 1e-4 absolute)
+    # are held to 1e-4 absolute). Measured on [False-False-64]: 2.4e-7
+    # of its row's largest entry, for the kernel port's plain backward and
+    # for autograd alike
     scale = np.abs(want).max(axis=(0, 2), keepdims=True)
     scale = np.where(scale > 0, scale, 1.0)
     np.testing.assert_allclose(got.numpy() / scale, want / scale, atol=1e-4)
