@@ -1,48 +1,56 @@
 // Fused GNN dynamics forward for NVIDIA Hopper (sm_90a): the interaction
-// network of the MPPI rollout, one push step for a chunk of samples.
+// network of the MPPI rollout, one push step for a chunk of samples. This
+// file holds the node-input layers and the index-based edge kernels; every
+// product of depth F runs on the bf16 tensor-core GEMM of gnn_gemm.cu.
 //
 // Replaces the Pallas TPU kernel `_gnn_kernel` (gsdx/kernels/gnn_forward.py,
 // fused_gnn_forward). Plain version: gsdx_torch/kernels/gnn_forward.py
-// gnn_forward_plain. Built by nvcc into a shared library with a C interface
-// and called through ctypes on PyTorch's current stream; the wrapper
-// `fused_gnn_forward` sequences the launches and owns every buffer.
+// gnn_forward_plain(operands="bf16"). Built by nvcc into a shared library
+// with a C interface and called through ctypes on PyTorch's current stream;
+// the wrapper `fused_gnn_forward` sequences the launches and owns every
+// buffer.
 //
-// What bounds it on this card: operations. One sample and push costs about
-// 1.7 GFLOP at rope width (eleven 512x512 products over 128 node rows and
-// 504 edge rows), against a few MB of weights and inputs, so the f32
-// multiply-adds bound it, not the 3.35 TB/s of device memory.
+// What bounds these kernels on this card: bytes. They do a few flops per
+// element (the node-input layers have K <= 32; the edge kernels add and
+// ReLU) over (B * E, F) and (B * n_pad, 2F) tensors. The whole forward is
+// bound by the GEMM's operations and the bytes of its activations; see
+// gnn_gemm.cu.
 //
 // Design. The TPU kernel keeps one sample's whole forward in VMEM: 5.8 MB
 // of bf16 weights and (E, 512) f32 activations. A Hopper block has 227 KB of
 // shared memory, so here the chunk's samples are batched instead: the node
 // rows of all samples (B * n_pad) and their edge rows (B * E) form the M
-// dimension of a few products against each shared weight matrix, which
-// gives enough blocks to fill 132 SMs and reads each weight tile once per
-// 128 rows. The one-hot products of the TPU kernel become index
-// operations: selecting rows by receiver/sender is a gather (-1 reads as
-// zero) and Rr^T @ erel is a segment sum over the receivers.
+// dimension of a few products against each shared weight matrix. The
+// one-hot products of the TPU kernel become index operations: selecting
+// rows by receiver/sender is a gather (-1 reads as zero) and Rr^T @ erel is
+// a segment sum over the receivers. Outputs that only a product reads are
+// stored bf16 (round to nearest even), halving their traffic.
 //
-//   * gnn_linear: Y = act(X W + bias + R1 + R2), X f32 (M, K) with a row
-//     stride, W bf16 (or f32, for the folded node-state block) (K, N),
-//     f32 accumulation. A 128x128 shared-memory tile, 8-deep K steps, 256
-//     threads each holding an 8x8 register micro-tile. The epilogue fuses
-//     the bias, up to two residuals and the ReLU.
+//   * gnn_linear: the node-input layers over [state | attrs | action],
+//     K <= 32 (11 at n_his 3: below wgmma's depth of 16, and a row stride
+//     of 14 floats that TMA does not take). Y = act(X W + bias + R), X f32
+//     (M, K) with a row stride, W bf16 (or f32, for the folded node-state
+//     block) (K, N), f32 arithmetic on the CUDA cores; Y f32 or bf16.
+//     A 128x128 shared-memory tile, 8-deep K steps, 256 threads each
+//     holding an 8x8 register micro-tile.
 //   * gnn_edge_first: relation-encoder layer 1 in node-side form,
-//     h1[e] = relu(nr[recv] + ns[send] + |g[recv] - g[send]| w_g + b1).
+//     h1[e] = relu(nr[recv] + ns[send] + |g[recv] - g[send]| w_g + b1),
+//     stored bf16.
 //   * gnn_message: agg[b, n] = sum over slots e with recv[b, e] = n of
-//     relu(rel_pre[e] + ewr[b, n] + ews[b, send[e]]). The edge effect is
-//     read only by this sum, so it never reaches device memory. One block
-//     per node row scans its sample's receivers 32 at a time with a warp
-//     ballot and adds the matches in slot order: no atomics, and the same
-//     result on every run, whatever order the slots come in.
+//     relu(rel_pre[e] + ewr[b, n] + ews[b, send[e]]), summed in f32 and
+//     stored bf16. The edge effect is read only by this sum, so it never
+//     reaches device memory. One block per node row scans its sample's
+//     receivers 32 at a time with a warp ballot and adds the matches in
+//     slot order: no atomics, and the same result on every run, whatever
+//     order the slots come in.
 //
 // Empty slots (-1) never reach an aggregation. Their rows of the relation
 // encoder hold relu(b1)-derived values, as in the TPU kernel, and nothing
-// reads them. This version computes in f32 on the CUDA cores; bf16 tensor
-// cores are later work.
+// reads them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -50,15 +58,31 @@ constexpr int BM = 128;  // rows of a gnn_linear tile
 constexpr int BN = 128;  // columns of a gnn_linear tile
 constexpr int BK = 8;    // depth of one K step
 constexpr int LINEAR_THREADS = 256;
+constexpr int LINEAR_MAX_K = 32;  // the node-input layers; depth F is the GEMM's
+
+__device__ __forceinline__ void add4(float4& v, float4 r) {
+  v.x += r.x;
+  v.y += r.y;
+  v.z += r.z;
+  v.w += r.w;
+}
+
+// Four f32 values rounded to bf16 (nearest even) in one 8-byte store.
+__device__ __forceinline__ void store_bf16x4(__nv_bfloat16* dst, float a, float b,
+                                             float c, float d) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
+  uint2 packed;
+  packed.x = *reinterpret_cast<uint32_t*>(&lo);
+  packed.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(dst) = packed;
+}
 
 __global__ void __launch_bounds__(LINEAR_THREADS)
 gnn_linear_kernel(const float* __restrict__ X, int ldx,
                   const __nv_bfloat16* __restrict__ Wb,
-                  const float* __restrict__ Wf, int ldw,
-                  const float* __restrict__ bias,
-                  const float* __restrict__ R1, const float* __restrict__ R2,
-                  int ldr, float* __restrict__ Y, int ldy, int M, int N, int K,
-                  int relu) {
+                  const float* __restrict__ Wf, const float* __restrict__ bias,
+                  const float* __restrict__ R, float* __restrict__ Y,
+                  __nv_bfloat16* __restrict__ Yb, int M, int N, int K, int relu) {
   __shared__ __align__(16) float As[BK][BM];  // X tile, transposed
   __shared__ __align__(16) float Bs[BK][BN];  // W tile
   const int tid = threadIdx.x;
@@ -87,7 +111,7 @@ gnn_linear_kernel(const float* __restrict__ X, int ldx,
       const int n = n0 + wc + c;
       float v = 0.f;
       if (kw < K && n < N) {
-        const long at = static_cast<long>(kw) * ldw + n;
+        const long at = static_cast<long>(kw) * N + n;
         v = Wf ? Wf[at] : __bfloat162float(Wb[at]);
       }
       Bs[wr][wc + c] = v;
@@ -109,20 +133,27 @@ gnn_linear_kernel(const float* __restrict__ X, int ldx,
     __syncthreads();
   }
 
+  // four consecutive columns a store: a warp writes two rows of 64 columns
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const long row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
     if (row >= M) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (col >= N) continue;
-      float v = acc[i][j];
-      if (bias) v += bias[col];
-      if (R1) v += R1[row * ldr + col];
-      if (R2) v += R2[row * ldr + col];
-      if (relu) v = fmaxf(v, 0.f);
-      Y[row * ldy + col] = v;
+    for (int half = 0; half < 2; ++half) {
+      const int col = n0 + half * 64 + tx * 4;
+      if (col >= N) continue;  // N is a multiple of 4
+      float4 v = make_float4(acc[i][4 * half], acc[i][4 * half + 1],
+                             acc[i][4 * half + 2], acc[i][4 * half + 3]);
+      if (bias) add4(v, *reinterpret_cast<const float4*>(&bias[col]));
+      if (R) add4(v, *reinterpret_cast<const float4*>(&R[row * N + col]));
+      if (relu) {
+        v.x = fmaxf(v.x, 0.f);
+        v.y = fmaxf(v.y, 0.f);
+        v.z = fmaxf(v.z, 0.f);
+        v.w = fmaxf(v.w, 0.f);
+      }
+      if (Y) *reinterpret_cast<float4*>(&Y[row * N + col]) = v;
+      if (Yb) store_bf16x4(&Yb[row * N + col], v.x, v.y, v.z, v.w);
     }
   }
 }
@@ -135,7 +166,7 @@ __global__ void gnn_edge_first_kernel(const float* __restrict__ nrs,
                                       const int* __restrict__ send,
                                       const __nv_bfloat16* __restrict__ wg,
                                       const float* __restrict__ b1,
-                                      float* __restrict__ h1, int E, int n_pad,
+                                      __nv_bfloat16* __restrict__ h1, int E, int n_pad,
                                       int F) {
   const long e = blockIdx.x;
   const long b = e / E;
@@ -147,12 +178,11 @@ __global__ void gnn_edge_first_kernel(const float* __restrict__ nrs,
   float4 a = make_float4(0.f, 0.f, 0.f, 0.f), c = a;
   if (r >= 0) a = *reinterpret_cast<const float4*>(&nrs[(b * n_pad + r) * 2 * F + f]);
   if (s >= 0) c = *reinterpret_cast<const float4*>(&nrs[(b * n_pad + s) * 2 * F + F + f]);
-  float4 out;
-  out.x = fmaxf(a.x + c.x + gd * __bfloat162float(wg[f + 0]) + b1[f + 0], 0.f);
-  out.y = fmaxf(a.y + c.y + gd * __bfloat162float(wg[f + 1]) + b1[f + 1], 0.f);
-  out.z = fmaxf(a.z + c.z + gd * __bfloat162float(wg[f + 2]) + b1[f + 2], 0.f);
-  out.w = fmaxf(a.w + c.w + gd * __bfloat162float(wg[f + 3]) + b1[f + 3], 0.f);
-  *reinterpret_cast<float4*>(&h1[e * F + f]) = out;
+  const float o0 = fmaxf(a.x + c.x + gd * __bfloat162float(wg[f + 0]) + b1[f + 0], 0.f);
+  const float o1 = fmaxf(a.y + c.y + gd * __bfloat162float(wg[f + 1]) + b1[f + 1], 0.f);
+  const float o2 = fmaxf(a.z + c.z + gd * __bfloat162float(wg[f + 2]) + b1[f + 2], 0.f);
+  const float o3 = fmaxf(a.w + c.w + gd * __bfloat162float(wg[f + 3]) + b1[f + 3], 0.f);
+  store_bf16x4(&h1[e * F + f], o0, o1, o2, o3);
 }
 
 // One block per node row, F / 4 threads (whole warps) of four columns each.
@@ -161,7 +191,7 @@ __global__ void gnn_message_kernel(const float* __restrict__ rel_pre,
                                    const float* __restrict__ ew,
                                    const int* __restrict__ recv,
                                    const int* __restrict__ send,
-                                   float* __restrict__ agg, int E, int n_pad,
+                                   __nv_bfloat16* __restrict__ agg, int E, int n_pad,
                                    int F) {
   const long node = blockIdx.x;
   const long b = node / n_pad;
@@ -191,7 +221,7 @@ __global__ void gnn_message_kernel(const float* __restrict__ rel_pre,
       acc.w += fmaxf(rp.w + er.w + es.w, 0.f);
     }
   }
-  *reinterpret_cast<float4*>(&agg[node * F + f]) = acc;
+  store_bf16x4(&agg[node * F + f], acc.x, acc.y, acc.z, acc.w);
 }
 
 bool bad_width(int F) { return F <= 0 || F % 128 != 0 || F > 4096; }
@@ -205,40 +235,42 @@ const char* gsdx_gnn_error_string(int err) {
 }
 
 // Each returns a cudaError_t code: 0 when the launch was accepted.
-int gsdx_gnn_linear(const float* X, int ldx, const void* W, int w_f32, int ldw,
-                    const float* bias, const float* R1, const float* R2,
-                    int ldr, float* Y, int ldy, int M, int N, int K, int relu,
-                    void* stream) {
+// gnn_linear: W (K, N), bias (N) and R (M, N) or null, Y (M, N) f32 and Yb
+// (M, N) bf16 each written unless null; rows of W, R and Y are contiguous.
+int gsdx_gnn_linear(const float* X, int ldx, const void* W, int w_f32,
+                    const float* bias, const float* R, float* Y, void* Yb, int M,
+                    int N, int K, int relu, void* stream) {
+  if (K > LINEAR_MAX_K || N % 4) return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0 || N == 0) return 0;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   const __nv_bfloat16* wb = w_f32 ? nullptr : static_cast<const __nv_bfloat16*>(W);
   const float* wf = w_f32 ? static_cast<const float*>(W) : nullptr;
   gnn_linear_kernel<<<grid, LINEAR_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      X, ldx, wb, wf, ldw, bias, R1, R2, ldr, Y, ldy, M, N, K, relu);
+      X, ldx, wb, wf, bias, R, Y, static_cast<__nv_bfloat16*>(Yb), M, N, K, relu);
   return static_cast<int>(cudaGetLastError());
 }
 
 int gsdx_gnn_edge_first(const float* nrs, const float* g, const int* recv,
                         const int* send, const void* wg, const float* b1,
-                        float* h1, int B, int E, int n_pad, int F,
+                        void* h1, int B, int E, int n_pad, int F,
                         void* stream) {
   if (bad_width(F)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || E == 0) return 0;
   gnn_edge_first_kernel<<<static_cast<unsigned>(B) * E, F / 4, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      nrs, g, recv, send, static_cast<const __nv_bfloat16*>(wg), b1, h1, E,
-      n_pad, F);
+      nrs, g, recv, send, static_cast<const __nv_bfloat16*>(wg), b1,
+      static_cast<__nv_bfloat16*>(h1), E, n_pad, F);
   return static_cast<int>(cudaGetLastError());
 }
 
 int gsdx_gnn_message(const float* rel_pre, const float* ew, const int* recv,
-                     const int* send, float* agg, int B, int E, int n_pad,
+                     const int* send, void* agg, int B, int E, int n_pad,
                      int F, void* stream) {
   if (bad_width(F)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   gnn_message_kernel<<<static_cast<unsigned>(B) * n_pad, F / 4, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      rel_pre, ew, recv, send, agg, E, n_pad, F);
+      rel_pre, ew, recv, send, static_cast<__nv_bfloat16*>(agg), E, n_pad, F);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,22 +1,28 @@
 """Fused GNN dynamics forward for the MPPI rollout (counterpart of
 `gsdx/kernels/gnn_forward.py`).
 
-Three pieces:
+Four pieces:
 
   * `pack_gnn_params` — the flax-layout param tree repacked as gsdx packs it:
     the relation encoder's first layer split by input block, the particle
     encoder's node-state block folded into one f32 matrix (`w1p_st`, zero
     for rope), the motion head padded to 8 columns and the (12, F) bias
-    stack; then three blocks concatenated as the kernels read them. Weights
-    are bf16 by default.
+    stack; then the weights as the kernels read them: the first-layer blocks
+    side by side, and a K-major (N, K) copy of every weight whose depth is
+    the hidden width F. Weights are bf16 by default.
   * `gnn_forward_plain` — the plain PyTorch version (the counterpart of
-    `gnn_forward_xla_twin`): the CPU path and the kernel's oracle. Edge
+    `gnn_forward_xla_twin`): the CPU path and the kernels' oracle. Edge
     selections are row gathers (-1 reads as zero), the aggregation over
-    receivers an `index_add_`.
-  * `fused_gnn_forward` — the wrapper of the hand-written CUDA kernels in
-    `gsdx_torch/csrc/gnn_forward.cu` (the Hopper port of gsdx's Pallas
-    `_gnn_kernel`). A CUDA tensor launches them or raises; only CPU tensors
-    take the plain version. `LAUNCHES` counts the launches.
+    receivers an `index_add_`. ``operands="bf16"`` rounds the activation
+    operand of every product of depth F to bf16, as the kernels store it.
+  * `gnn_gemm` — the wrapper of the bf16 tensor-core GEMM in
+    `gsdx_torch/csrc/gnn_gemm.cu`, which computes every product of depth F;
+    `gnn_gemm_plain` is its plain version.
+  * `fused_gnn_forward` — the wrapper that sequences the hand-written CUDA
+    kernels of `gsdx_torch/csrc/gnn_forward.cu` (node-input layers, edge
+    layer 1, message rounds) and `gnn_gemm.cu` (the Hopper port of gsdx's
+    Pallas `_gnn_kernel`). A CUDA tensor launches them or raises; only CPU
+    tensors take the plain version. `LAUNCHES` counts the launches.
 
 Inputs, per sample b of a chunk: attrs (B, n_pad, 2), action (B, n_pad, 3),
 state_t (B, n_pad, 3 * n_his) history-major node positions, g (B, n_pad, 1)
@@ -40,10 +46,14 @@ from gsdx_torch.kernels._build import I32, PTR, CudaLibrary
 # Node slots the kernels are padded to (objects + tool), as in gsdx.
 N_PAD_CHOICES = (128, 256)
 
-# Launches counted by the wrapper where it launches: one "gnn_forward" per
-# fused forward, and each of its three kernels per launch.
-LAUNCHES = {"gnn_forward": 0, "gnn_linear": 0, "gnn_edge_first": 0,
-            "gnn_message": 0}
+# Launches counted by the wrappers where they launch: one "gnn_forward" per
+# fused forward, and each of its four kernels per launch ("gnn_linear" the
+# node-input layers, "gnn_gemm" every product of depth F).
+LAUNCHES = {"gnn_forward": 0, "gnn_linear": 0, "gnn_gemm": 0,
+            "gnn_edge_first": 0, "gnn_message": 0}
+
+# Rows of a GEMM tile: the K-major weight copies hold a multiple of it.
+GEMM_BN = 128
 
 
 def reset_launches() -> None:
@@ -78,11 +88,27 @@ class PackedGNN(NamedTuple):
     # the same weights as the kernels read them (not in gsdx's pack)
     w_nrs: torch.Tensor  # (3 * n_his + 2, 2F): [w1r_dist | -w1r_dist] over [w1r_attr_r | w1r_attr_s]
     w_pa: torch.Tensor  # (5, F): w1p_attr over w1p_act
-    w_rs: torch.Tensor  # (F, 2F): wr1 | wr2
+    # K-major (N, K) copies for the GEMM: wt_x = x.T
+    wt_2r: torch.Tensor
+    wt_3r: torch.Tensor
+    wt_r0: torch.Tensor
+    wt_2p: torch.Tensor
+    wt_3p: torch.Tensor
+    wt_p0: torch.Tensor
+    wt_rs: torch.Tensor  # (2F, F): (wr1 | wr2).T
+    wt_p1: torch.Tensor
+    wt_h1: torch.Tensor
+    wt_h2: torch.Tensor
+    wt_h3: torch.Tensor  # (GEMM_BN, F): wh3.T over zero rows
 
 
 # The fields of gsdx's PackedGNN, in its order: each weight once.
 GSDX_FIELDS = PackedGNN._fields[:20]
+# Each GEMM weight copy and the gsdx weights it transposes, side by side.
+GEMM_WEIGHTS = {"wt_2r": ("w2r",), "wt_3r": ("w3r",), "wt_r0": ("wr0",),
+                "wt_2p": ("w2p",), "wt_3p": ("w3p",), "wt_p0": ("wp0",),
+                "wt_rs": ("wr1", "wr2"), "wt_p1": ("wp1",), "wt_h1": ("wh1",),
+                "wt_h2": ("wh2",), "wt_h3": ("wh3",)}
 
 
 def pack_gnn_params(params, n_his: int = 3, dtype=torch.bfloat16,
@@ -158,7 +184,7 @@ def pack_gnn_params(params, n_his: int = 3, dtype=torch.bfloat16,
     w1r_attr_r, w1r_attr_s, w1r_dist = w(k1r[0:2]), w(k1r[2:4]), w(k1r[5:5 + nd])
     w1p_attr, w1p_act = w(k1p[0:2]), w(k1p_act)
     wr1, wr2 = w(krel[F:2 * F]), w(krel[2 * F:3 * F])
-    return PackedGNN(
+    fields = dict(
         w1r_attr_r=w1r_attr_r, w1r_attr_s=w1r_attr_s, w1r_g=w(k1r[4:5]),
         w1r_dist=w1r_dist, w2r=w(k2r), w3r=w(k3r),
         w1p_attr=w1p_attr, w1p_st=w1p_st.contiguous(), w1p_act=w1p_act,
@@ -168,8 +194,12 @@ def pack_gnn_params(params, n_his: int = 3, dtype=torch.bfloat16,
         wh1=w(kh1), wh2=w(kh2), wh3=w(wh3), biases=biases.contiguous(),
         w_nrs=torch.cat([torch.cat([w1r_dist, -w1r_dist], 1),
                          torch.cat([w1r_attr_r, w1r_attr_s], 1)]).contiguous(),
-        w_pa=torch.cat([w1p_attr, w1p_act]).contiguous(),
-        w_rs=torch.cat([wr1, wr2], 1).contiguous())
+        w_pa=torch.cat([w1p_attr, w1p_act]).contiguous())
+    for kt, names in GEMM_WEIGHTS.items():
+        x = torch.cat([fields[name] for name in names], 1).t()
+        rows = -(-x.shape[0] // GEMM_BN) * GEMM_BN
+        fields[kt] = torch.cat([x, x.new_zeros(rows - x.shape[0], F)]).contiguous()
+    return PackedGNN(**fields)
 
 
 # --------------------------------------------------------------------------
@@ -186,29 +216,46 @@ def _select(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def gnn_forward_plain(packed: PackedGNN, attrs, action, state_t, g, recv_idx,
-                      send_idx, pstep: int = 3) -> torch.Tensor:
+                      send_idx, pstep: int = 3, operands: str = "f32") -> torch.Tensor:
     """The fused forward's function in plain PyTorch (any device): the same
-    grouping of products and the same f32 math as `gnn_forward_xla_twin`,
-    with bf16 weights widened to f32 at use."""
+    grouping of products as `gnn_forward_xla_twin`, with bf16 weights
+    widened at use to the type of the activations, f32 (f64 inputs and an
+    f64 `biases`/`w1p_st` give the same function with f64 sums).
+
+    ``operands="f32"``: f32 activations throughout, `gnn_forward_xla_twin`'s
+    math. ``operands="bf16"``: what the CUDA kernels compute. The activation
+    operand of every product of depth F is rounded to bf16 (nearest even),
+    as the kernels store the layer outputs that only a product reads (h1,
+    the encoders' hidden layers, enc_r, agg, the head's hidden layers) and
+    the bf16 copy of enc_p and of each round's effect. The node-input
+    layers, rel_pre, node_pre, the message terms and the residual effect
+    stay f32."""
+    if operands not in ("f32", "bf16"):
+        raise ValueError(f"operands must be 'f32' or 'bf16', got {operands!r}")
     B, n_pad, _ = attrs.shape
     b = packed.biases
 
     def dot(a, w):
-        return a @ w.float()
+        return a @ w.to(a.dtype)
+
+    def mm(a, w):  # a product of depth F: the GEMM's
+        if operands == "bf16":
+            a = a.to(torch.bfloat16).to(a.dtype)
+        return a @ w.to(a.dtype)
 
     nr = dot(attrs, packed.w1r_attr_r) + dot(state_t, packed.w1r_dist)
     ns = dot(attrs, packed.w1r_attr_s) - dot(state_t, packed.w1r_dist)
     gdiff = torch.abs(_select(g, recv_idx) - _select(g, send_idx))
     h = torch.relu(_select(nr, recv_idx) + _select(ns, send_idx)
-                   + gdiff * packed.w1r_g.float()[0] + b[0])
-    h = torch.relu(dot(h, packed.w2r) + b[1])
-    enc_r = torch.relu(dot(h, packed.w3r) + b[2])
-    rel_pre = dot(enc_r, packed.wr0) + b[3]
+                   + gdiff * packed.w1r_g.to(gdiff.dtype)[0] + b[0])
+    h = torch.relu(mm(h, packed.w2r) + b[1])
+    enc_r = torch.relu(mm(h, packed.w3r) + b[2])
+    rel_pre = mm(enc_r, packed.wr0) + b[3]
     hp = torch.relu(dot(attrs, packed.w1p_attr) + dot(state_t, packed.w1p_st)
                     + dot(action, packed.w1p_act) + b[4])
-    hp = torch.relu(dot(hp, packed.w2p) + b[5])
-    enc_p = torch.relu(dot(hp, packed.w3p) + b[6])
-    node_pre = dot(enc_p, packed.wp0) + b[7]
+    hp = torch.relu(mm(hp, packed.w2p) + b[5])
+    enc_p = torch.relu(mm(hp, packed.w3p) + b[6])
+    node_pre = mm(enc_p, packed.wp0) + b[7]
 
     F = enc_p.shape[2]
     # receiver of each slot as a row of the flattened (B * (n_pad + 1), F)
@@ -218,29 +265,90 @@ def gnn_forward_plain(packed: PackedGNN, attrs, action, state_t, g, recv_idx,
     rows = (sink + torch.arange(B, device=recv.device)[:, None] * (n_pad + 1)).reshape(-1)
     effect = enc_p
     for _ in range(pstep):
-        ewr = dot(effect, packed.wr1)
-        ews = dot(effect, packed.wr2)
+        ewr = mm(effect, packed.wr1)
+        ews = mm(effect, packed.wr2)
         erel = torch.relu(rel_pre + _select(ewr, recv_idx) + _select(ews, send_idx))
         agg = torch.zeros((B * (n_pad + 1), F), dtype=erel.dtype, device=erel.device)
         agg.index_add_(0, rows, erel.reshape(-1, F))
         agg = agg.reshape(B, n_pad + 1, F)[:, :n_pad]
-        effect = torch.relu(node_pre + dot(agg, packed.wp1) + effect)
-    hh = torch.relu(dot(effect, packed.wh1) + b[8])
-    hh = torch.relu(dot(hh, packed.wh2) + b[9])
-    return dot(hh, packed.wh3) + b[10, :8]
+        effect = torch.relu(node_pre + mm(agg, packed.wp1) + effect)
+    hh = torch.relu(mm(effect, packed.wh1) + b[8])
+    hh = torch.relu(mm(hh, packed.wh2) + b[9])
+    return mm(hh, packed.wh3) + b[10, :8]
+
+
+def gnn_gemm_plain(x: torch.Tensor, wt: torch.Tensor, n: int | None = None, *,
+                   bias=None, r1=None, r2=None, relu: bool = False,
+                   f32: bool = True, bf16: bool = False):
+    """`gnn_gemm`'s function in plain PyTorch: act(x @ wt[:n].T + bias + r1
+    + r2) with f32 sums, returned as (f32 or None, bf16 or None)."""
+    n = wt.shape[0] if n is None else n
+    y = x.float() @ wt[:n].float().t()
+    for extra in (bias, r1, r2):
+        if extra is not None:
+            y = y + extra
+    if relu:
+        y = torch.relu(y)
+    return (y if f32 else None), (y.to(torch.bfloat16) if bf16 else None)
 
 
 # --------------------------------------------------------------------------
-# CUDA kernels: wrapper
+# CUDA kernels: wrappers
 # --------------------------------------------------------------------------
 
 LIBRARY = CudaLibrary(
     "gsdx_gnn_forward", "gnn_forward.cu",
-    {"gsdx_gnn_linear": [PTR, I32, PTR, I32, I32, PTR, PTR, PTR, I32, PTR,
-                         I32, I32, I32, I32, I32, PTR],
+    {"gsdx_gnn_linear": [PTR, I32, PTR, I32, PTR, PTR, PTR, PTR, I32, I32, I32, I32, PTR],
      "gsdx_gnn_edge_first": [PTR] * 7 + [I32] * 4 + [PTR],
      "gsdx_gnn_message": [PTR] * 5 + [I32] * 4 + [PTR]},
     error_string="gsdx_gnn_error_string")
+
+GEMM_LIBRARY = CudaLibrary(
+    "gsdx_gnn_gemm", "gnn_gemm.cu",
+    {"gsdx_gnn_gemm": [PTR, PTR, I32, I32, I32, PTR, PTR, PTR, PTR, PTR, I32, PTR]},
+    error_string="gsdx_gnn_gemm_error_string")
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def gnn_gemm(x: torch.Tensor, wt: torch.Tensor, n: int | None = None, *,
+             bias=None, r1=None, r2=None, relu: bool = False, f32: bool = True,
+             bf16: bool = False):
+    """act(x @ wt[:n].T + bias + r1 + r2) -> (f32 or None, bf16 or None).
+
+    x (M, K) bf16, wt (N_w, K) a K-major bf16 weight copy of `pack_gnn_params`
+    (N_w the multiple of 128 at or above n, default N_w), bias (n,), r1 and
+    r2 (M, n) f32. CUDA tensors launch the tensor-core GEMM of
+    `csrc/gnn_gemm.cu`; CPU tensors run `gnn_gemm_plain`."""
+    if not x.is_cuda:
+        return gnn_gemm_plain(x, wt, n, bias=bias, r1=r1, r2=r2, relu=relu,
+                              f32=f32, bf16=bf16)
+    n = wt.shape[0] if n is None else n
+    M, K = x.shape
+    if (x.dtype != torch.bfloat16 or wt.dtype != torch.bfloat16 or x.dim() != 2
+            or not x.is_contiguous() or not wt.is_contiguous() or wt.shape[1] != K
+            or K % 64 or n % 8 or n <= 0
+            or wt.shape[0] != -(-n // GEMM_BN) * GEMM_BN or wt.device != x.device):
+        raise ValueError(f"gnn_gemm: x {tuple(x.shape)} {x.dtype}, wt {tuple(wt.shape)} "
+                         f"{wt.dtype}, n {n}: wants contiguous bf16 on one device, "
+                         "K a multiple of 64, n of 8, wt rows n rounded up to 128")
+    for name, t, shape in (("bias", bias, (n,)), ("r1", r1, (M, n)), ("r2", r2, (M, n))):
+        if t is not None and (t.dtype != torch.float32 or tuple(t.shape) != shape
+                              or not t.is_contiguous() or t.device != x.device):
+            raise ValueError(f"gnn_gemm: {name} must be a contiguous f32 {shape} "
+                             f"tensor on {x.device}")
+    if not (f32 or bf16):
+        raise ValueError("gnn_gemm: ask for an f32 or a bf16 output")
+    y = torch.empty((M, n), dtype=torch.float32, device=x.device) if f32 else None
+    yb = torch.empty((M, n), dtype=torch.bfloat16, device=x.device) if bf16 else None
+    err = GEMM_LIBRARY.load().gsdx_gnn_gemm(
+        x.data_ptr(), wt.data_ptr(), M, n, K, _ptr(bias), _ptr(r1), _ptr(r2),
+        _ptr(y), _ptr(yb), int(relu), torch.cuda.current_stream(x.device).cuda_stream)
+    GEMM_LIBRARY.check(err, "gnn_gemm")
+    LAUNCHES["gnn_gemm"] += 1
+    return y, yb
 
 
 def _check_inputs(packed: PackedGNN, **tensors) -> torch.device:
@@ -284,13 +392,20 @@ def _check_indices(recv_idx: torch.Tensor, send_idx: torch.Tensor, n_pad: int) -
 def fused_gnn_forward(packed: PackedGNN, attrs, action, state_t, g, recv_idx,
                       send_idx, pstep: int = 3) -> torch.Tensor:
     """Batched fused forward; see the module docstring for shapes. CUDA
-    tensors launch the kernels of `csrc/gnn_forward.cu` (bf16 weights, f32
-    activations and arithmetic); CPU tensors run `gnn_forward_plain`. An
-    edge index outside [-1, n_pad) raises on either."""
+    tensors launch the kernels of `csrc/gnn_forward.cu` and `csrc/gnn_gemm.cu`
+    (bf16 weights and product operands, f32 sums); CPU tensors run
+    `gnn_forward_plain(operands="bf16")`, their plain version. An edge index
+    outside [-1, n_pad) raises on either."""
     _check_indices(recv_idx, send_idx, attrs.shape[1])
     if not attrs.is_cuda:
         return gnn_forward_plain(packed, attrs, action, state_t, g, recv_idx,
-                                 send_idx, pstep)
+                                 send_idx, pstep, operands="bf16")
+    return _launch_forward(packed, attrs, action, state_t, g, recv_idx, send_idx, pstep)
+
+
+def _launch_forward(packed: PackedGNN, attrs, action, state_t, g, recv_idx,
+                    send_idx, pstep: int) -> torch.Tensor:
+    """The CUDA launches of `fused_gnn_forward`, after its index check."""
     B, n_pad, _ = attrs.shape
     E = recv_idx.shape[1]
     nd = state_t.shape[2]
@@ -310,17 +425,14 @@ def fused_gnn_forward(packed: PackedGNN, attrs, action, state_t, g, recv_idx,
     Mn, Me = B * n_pad, B * E
     bias = packed.biases
 
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
 
-    def linear(x, ldx, w, y, ldy, M, N, K, *, ldw=None, b=None, r1=None,
-               r2=None, ldr=0, relu=False):
+    def linear(x, ldx, w, M, N, K, *, y=None, yb=None, b=None, r=None, relu=False):
+        """A node-input layer (K <= 32) on the CUDA cores."""
         err = lib.gsdx_gnn_linear(
-            x.data_ptr(), ldx, w.data_ptr(), int(w.dtype == torch.float32),
-            ldw or N, None if b is None else b.data_ptr(),
-            None if r1 is None else r1.data_ptr(),
-            None if r2 is None else r2.data_ptr(), ldr, y.data_ptr(), ldy,
-            M, N, K, int(relu), stream)
+            x.data_ptr(), ldx, w.data_ptr(), int(w.dtype == torch.float32), _ptr(b),
+            _ptr(r), _ptr(y), _ptr(yb), M, N, K, int(relu), stream)
         LIBRARY.check(err, "gnn_linear")
         LAUNCHES["gnn_linear"] += 1
 
@@ -330,48 +442,47 @@ def fused_gnn_forward(packed: PackedGNN, attrs, action, state_t, g, recv_idx,
     ldn = nd + 5
 
     nrs = empty(Mn, 2 * F)  # nr | ns
-    linear(x_node, ldn, packed.w_nrs, nrs, 2 * F, Mn, 2 * F, nd + 2)
-    n_a, n_b, n_c, n_d = empty(Mn, F), empty(Mn, F), empty(Mn, F), empty(Mn, F)
-    linear(x_node, ldn, packed.w1p_st, n_a, F, Mn, F, nd)  # st @ w1p_st
+    linear(x_node, ldn, packed.w_nrs, Mn, 2 * F, nd + 2, y=nrs)
+    st_w = empty(Mn, F)
+    linear(x_node, ldn, packed.w1p_st, Mn, F, nd, y=st_w)  # st @ w1p_st
+    hp = empty(Mn, F, dtype=torch.bfloat16)
     x_pa = x_node[:, nd:]  # attrs | action, row stride ldn
-    linear(x_pa, ldn, packed.w_pa, n_b, F, Mn, F, 5, b=bias[4], r1=n_a, ldr=F, relu=True)
-    linear(n_b, F, packed.w2p, n_a, F, Mn, F, F, b=bias[5], relu=True)
-    enc_p = n_b
-    linear(n_a, F, packed.w3p, enc_p, F, Mn, F, F, b=bias[6], relu=True)
-    node_pre = n_c
-    linear(enc_p, F, packed.wp0, node_pre, F, Mn, F, F, b=bias[7])
+    linear(x_pa, ldn, packed.w_pa, Mn, F, 5, yb=hp, b=bias[4], r=st_w, relu=True)
+    del st_w
+    _, hp = gnn_gemm(hp, packed.wt_2p, bias=bias[5], relu=True, f32=False, bf16=True)
+    enc_p, enc_p16 = gnn_gemm(hp, packed.wt_3p, bias=bias[6], relu=True, bf16=True)
+    node_pre, _ = gnn_gemm(enc_p16, packed.wt_p0, bias=bias[7])
 
-    e_a, e_b = empty(Me, F), empty(Me, F)
+    h1 = empty(Me, F, dtype=torch.bfloat16)
     err = lib.gsdx_gnn_edge_first(nrs.data_ptr(), g.data_ptr(), recv_idx.data_ptr(),
                                   send_idx.data_ptr(), packed.w1r_g.data_ptr(),
-                                  bias[0].data_ptr(), e_a.data_ptr(), B, E, n_pad,
+                                  bias[0].data_ptr(), h1.data_ptr(), B, E, n_pad,
                                   F, stream)
     LIBRARY.check(err, "gnn_edge_first")
     LAUNCHES["gnn_edge_first"] += 1
-    linear(e_a, F, packed.w2r, e_b, F, Me, F, F, b=bias[1], relu=True)
-    linear(e_b, F, packed.w3r, e_a, F, Me, F, F, b=bias[2], relu=True)
-    rel_pre = e_b
-    linear(e_a, F, packed.wr0, rel_pre, F, Me, F, F, b=bias[3])
-    del e_a
+    del nrs
+    _, h = gnn_gemm(h1, packed.wt_2r, bias=bias[1], relu=True, f32=False, bf16=True)
+    del h1
+    _, h = gnn_gemm(h, packed.wt_3r, bias=bias[2], relu=True, f32=False, bf16=True)
+    rel_pre, _ = gnn_gemm(h, packed.wt_r0, bias=bias[3])
+    del h
 
-    ew = nrs  # (Mn, 2F): ewr | ews, reusing the first layer's buffer
-    agg = n_a
-    effect, spare = enc_p, n_d
-    for _ in range(pstep):
-        linear(effect, F, packed.w_rs, ew, 2 * F, Mn, 2 * F, F)
+    agg = empty(Mn, F, dtype=torch.bfloat16)
+    effect, effect16 = enc_p, enc_p16
+    for r in range(pstep):
+        ew, _ = gnn_gemm(effect16, packed.wt_rs)  # (Mn, 2F): ewr | ews
         err = lib.gsdx_gnn_message(rel_pre.data_ptr(), ew.data_ptr(),
                                    recv_idx.data_ptr(), send_idx.data_ptr(),
                                    agg.data_ptr(), B, E, n_pad, F, stream)
         LIBRARY.check(err, "gnn_message")
         LAUNCHES["gnn_message"] += 1
-        linear(agg, F, packed.wp1, spare, F, Mn, F, F, r1=node_pre, r2=effect,
-               ldr=F, relu=True)
-        effect, spare = spare, effect
+        # the last round's effect is read only by the head's product
+        effect, effect16 = gnn_gemm(agg, packed.wt_p1, r1=node_pre, r2=effect,
+                                    relu=True, f32=r < pstep - 1, bf16=True)
 
-    linear(effect, F, packed.wh1, spare, F, Mn, F, F, b=bias[8], relu=True)
-    linear(spare, F, packed.wh2, agg, F, Mn, F, F, b=bias[9], relu=True)
-    out = empty(Mn, 8)
-    linear(agg, F, packed.wh3, out, 8, Mn, 8, F, b=bias[10])
+    _, hh = gnn_gemm(effect16, packed.wt_h1, bias=bias[8], relu=True, f32=False, bf16=True)
+    _, hh = gnn_gemm(hh, packed.wt_h2, bias=bias[9], relu=True, f32=False, bf16=True)
+    out, _ = gnn_gemm(hh, packed.wt_h3, 8, bias=bias[10, :8])
     LAUNCHES["gnn_forward"] += 1
     return out.reshape(B, n_pad, 8)
 
@@ -388,3 +499,34 @@ def forward_flops(n_rows: int, n_edges: int, F: int, nd: int, pstep: int,
     rounds = pstep * (2 * n_rows * F * 3 * F + 4 * n_messages * F)
     head = 2 * n_rows * F * (2 * F + 8)
     return node_first + edge_first + mlp + rounds + head
+
+
+def forward_bytes(n_rows: int, n_edges: int, F: int, nd: int, pstep: int) -> dict:
+    """Device-memory bytes of one forward in this unfused design, by
+    kernel: each launch reads its inputs once and writes its outputs once
+    (weights and indices included), for ``n_rows`` node rows and
+    ``n_edges`` edge rows, with the activation types of
+    `fused_gnn_forward`."""
+    bf, f4 = 2, 4
+    Mn, Me = n_rows, n_edges
+
+    def gemm(M, N, residuals=0, f32=False, bf16=False, bias=True):
+        return (M * F * bf + N * F * bf + bias * N * f4 + residuals * M * N * f4
+                + f32 * M * N * f4 + bf16 * M * N * bf)
+
+    x_node = Mn * (nd + 5) * f4
+    linear = (x_node + (nd + 2) * 2 * F * bf + Mn * 2 * F * f4  # nr | ns
+              + x_node + nd * F * f4 + Mn * F * f4  # st @ w1p_st
+              + x_node + Mn * F * f4 + 5 * F * bf + Mn * F * bf)  # hp, bf16
+    products = (gemm(Mn, F, bf16=True) + gemm(Mn, F, f32=True, bf16=True)
+                + gemm(Mn, F, f32=True) + 2 * gemm(Me, F, bf16=True) + gemm(Me, F, f32=True)
+                + 2 * gemm(Mn, F, bf16=True) + gemm(Mn, 8, f32=True))
+    message = 0
+    for r in range(pstep):
+        products += gemm(Mn, 2 * F, f32=True, bias=False)
+        products += gemm(Mn, F, residuals=2, f32=r < pstep - 1, bf16=True, bias=False)
+        message += Me * F * f4 + Mn * 2 * F * f4 + 2 * Me * 4 + Mn * F * bf
+    # edge layer 1: nr | ns, g, two index vectors in; h1 bf16 out
+    edge_first = Mn * 2 * F * f4 + Mn * f4 + 2 * Me * 4 + 2 * F * f4 + Me * F * bf
+    return {"gnn_linear": linear, "gnn_gemm": products, "gnn_edge_first": edge_first,
+            "gnn_message": message}

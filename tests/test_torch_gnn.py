@@ -44,7 +44,18 @@ def test_pack_equals_gsdx_bit_for_bit(weights):
         torch.cat([port.w1r_dist, -port.w1r_dist], 1),
         torch.cat([port.w1r_attr_r, port.w1r_attr_s], 1)]))
     assert torch.equal(port.w_pa, torch.cat([port.w1p_attr, port.w1p_act]))
-    assert torch.equal(port.w_rs, torch.cat([port.wr1, port.wr2], 1))
+    # the GEMM's K-major copies are gsdx's weights (side by side) transposed,
+    # bit for bit, over zero rows up to a multiple of the GEMM's 128-row tile
+    gsdx = {name: np.asarray(a.astype(jnp.float32)) for name, a in zip(ref._fields, ref)}
+    assert len(tg.GEMM_WEIGHTS) == 11  # every product of depth F
+    for kt, names in tg.GEMM_WEIGHTS.items():
+        weight = np.concatenate([gsdx[name] for name in names], 1)
+        copy = getattr(port, kt).float().numpy()
+        n, k = weight.shape[1], weight.shape[0]
+        assert copy.shape == (-(-n // tg.GEMM_BN) * tg.GEMM_BN, k), kt
+        assert copy[:n].view(np.uint32).tobytes() == np.ascontiguousarray(
+            weight.T).view(np.uint32).tobytes(), kt
+        assert not copy[n:].any(), kt
 
 
 def _inputs(rng, B, n_pad, n_obj, E, n_edges):
@@ -84,9 +95,62 @@ def test_plain_equals_gsdx_twin(rng, weights, n_pad, n_obj, E, n_edges, dtype):
     # the same f32 math, products and the receiver sums in another order:
     # 1e-5 of the output's largest entry
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
-    # on the CPU the wrapper runs the plain version
+    # on the CPU the wrapper runs the plain version of what the kernels
+    # compute: bf16 product operands
     wrapped = tg.fused_gnn_forward(port_pack, *map(torch.as_tensor, ins)).numpy()
-    np.testing.assert_array_equal(wrapped, out)
+    kernels_plain = tg.gnn_forward_plain(port_pack, *map(torch.as_tensor, ins),
+                                         operands="bf16").numpy()
+    np.testing.assert_array_equal(wrapped, kernels_plain)
+
+
+@pytest.mark.parametrize("weights,n_pad,n_obj,E,n_edges", CASES)
+def test_plain_bf16_operands_against_gsdx_twin(rng, weights, n_pad, n_obj, E, n_edges):
+    """The kernels' numerics (`operands="bf16"`: each product of depth F
+    rounds its activation operand to bf16, the TPU kernel's DEFAULT-precision
+    class) against gsdx's f32-activation twin."""
+    cfg = ModelConfig() if weights == "trained_rope" else ModelConfig(state_dim=1, motion_dim=3)
+    tree = trained_tree() if weights == "trained_rope" else _jax_tree(cfg)
+    ref_pack = jg.pack_gnn_params(jax.tree.map(jnp.asarray, tree), n_his=3)
+    port_pack = tg.pack_gnn_params(tree, n_his=3)
+    ins = _inputs(rng, 2, n_pad, n_obj, E, n_edges)
+    ref = np.asarray(jg.gnn_forward_xla_twin(ref_pack, *map(jnp.asarray, ins)))
+    out = tg.gnn_forward_plain(port_pack, *map(torch.as_tensor, ins), operands="bf16").numpy()
+    # about 14 layers, each rounding its input to bf16 (2^-9 relative):
+    # 5.3e-3 (rope) and 6.2e-3 (cloth) of the output's largest entry
+    # measured; 1e-2 bounds it
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-2 * np.abs(ref).max())
+    assert np.abs(out - ref).max() > 0  # the operands were rounded
+    with pytest.raises(ValueError):
+        tg.gnn_forward_plain(port_pack, *map(torch.as_tensor, ins), operands="fp8")
+
+
+@pytest.mark.parametrize("n", [8, 256])
+@pytest.mark.parametrize("epilogue", ["none", "bias_relu", "bias_r1_r2_relu"])
+def test_gemm_on_cpu_is_its_plain_version(rng, n, epilogue):
+    """`gnn_gemm` on CPU tensors runs `gnn_gemm_plain`: act(x @ wt[:n].T +
+    bias + r1 + r2), f32 and bf16 outputs, against numpy in f64."""
+    M, K = 37, 128
+    x = torch.as_tensor(rng.normal(size=(M, K)).astype(np.float32)).to(torch.bfloat16)
+    w = rng.normal(0, K ** -0.5, (n, K)).astype(np.float32)
+    wt = torch.zeros(-(-n // tg.GEMM_BN) * tg.GEMM_BN, K, dtype=torch.bfloat16)
+    wt[:n] = torch.as_tensor(w)
+    extras = {}
+    if epilogue != "none":
+        extras["bias"] = torch.as_tensor(rng.normal(size=n).astype(np.float32))
+    if epilogue == "bias_r1_r2_relu":
+        extras["r1"] = torch.as_tensor(rng.normal(size=(M, n)).astype(np.float32))
+        extras["r2"] = torch.as_tensor(rng.normal(size=(M, n)).astype(np.float32))
+    relu = epilogue != "none"
+    y, yb = tg.gnn_gemm(x, wt, n, relu=relu, bf16=True, **extras)
+    ref = x.double().numpy() @ wt[:n].double().numpy().T
+    for v in extras.values():
+        ref = ref + v.double().numpy()
+    if relu:
+        ref = np.maximum(ref, 0)
+    # f32 sums of exact bf16 products: K * 2^-24 of the magnitudes
+    np.testing.assert_allclose(y.numpy(), ref, rtol=0, atol=K * 2.0 ** -24 * np.abs(ref).max() + 1e-6)
+    np.testing.assert_array_equal(yb.float().numpy(), y.to(torch.bfloat16).float().numpy())
+    assert tg.gnn_gemm(x, wt, n, f32=False, bf16=True)[0] is None
 
 
 def test_plain_equals_interpreted_pallas_kernel(rng):

@@ -63,6 +63,27 @@ def _inputs(rng, B, n_pad, n_obj, E, n_edges, n_his, device):
     return [torch.as_tensor(x, device=device) for x in (attrs, act, st, g, recv, send)]
 
 
+# Kernels against `gnn_forward_plain(operands="bf16")`, which rounds the
+# same product operands to bf16. The two sum in f32 in other orders (the
+# tensor cores' own order and rounding, the message kernel's slot order), so
+# an activation that lands within an f32 rounding of a bf16 boundary rounds
+# one way here and the other way there: one bf16 ulp (2^-8 relative) in
+# that entry, which the layers after it carry to the output. These random
+# 512-wide nets carry it far: the plain version itself moves by up to 1.5e-2
+# of the output's largest entry when its sums are taken in f64 instead of
+# f32, and the kernels differ from it by up to 1.24e-2 (measured on the
+# card). FORWARD_TOL, of the output's largest entry, bounds that.
+FORWARD_TOL = 3e-2
+
+
+def _check_forward(out, packed, ins):
+    ref = G.gnn_forward_plain(packed, *ins, operands="bf16")
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    scale = float(ref.abs().max())
+    torch.testing.assert_close(out, ref, rtol=0, atol=FORWARD_TOL * scale)
+
+
 @pytest.mark.parametrize("B,n_pad,n_obj,E,n_edges,layout", [
     (1, 128, 30, 160, 120, "rope"),
     (5, 128, 100, 504, 504, "rope"),
@@ -74,17 +95,11 @@ def test_kernel_matches_plain(cuda, B, n_pad, n_obj, E, n_edges, layout):
     rng = np.random.default_rng(B * 1000 + E)
     packed = G.pack_gnn_params(_random_tree(rng, 512, 3, layout), device=cuda)
     ins = _inputs(rng, B, n_pad, n_obj, E, n_edges, 3, cuda)
-    n0 = G.LAUNCHES["gnn_forward"]
+    n0, g0 = G.LAUNCHES["gnn_forward"], G.LAUNCHES["gnn_gemm"]
     out = G.fused_gnn_forward(packed, *ins)
     assert G.LAUNCHES["gnn_forward"] == n0 + 1
-    ref = G.gnn_forward_plain(packed, *ins)
-    torch.cuda.synchronize()
-    # f32 products summed in another order than the plain version's matmuls
-    # (and its atomic index_add_): 1e-4 of the output's largest entry, as the
-    # JAX tests hold the interpret-mode kernel against its twin
-    scale = float(ref.abs().max())
-    assert torch.isfinite(out).all()
-    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * scale)
+    assert G.LAUNCHES["gnn_gemm"] == g0 + 15  # every product of depth F
+    _check_forward(out, packed, ins)
 
 
 def test_unordered_slots_and_refusals(cuda):
@@ -95,13 +110,14 @@ def test_unordered_slots_and_refusals(cuda):
     ins = _inputs(rng, 2, 128, 60, 320, 300, 3, cuda)
     perm = torch.randperm(320, generator=torch.Generator().manual_seed(0)).to(cuda)
     ins[4], ins[5] = ins[4][:, perm].contiguous(), ins[5][:, perm].contiguous()
-    out = G.fused_gnn_forward(packed, *ins)
-    ref = G.gnn_forward_plain(packed, *ins)
-    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+    _check_forward(G.fused_gnn_forward(packed, *ins), packed, ins)
     with pytest.raises(ValueError):
         G.fused_gnn_forward(packed, ins[0].double(), *ins[1:])
     with pytest.raises(ValueError):
         G.fused_gnn_forward(packed, ins[0][:, :100].contiguous(), *ins[1:])
+    # the GEMM takes only the kernel-side bf16 weight copies
+    with pytest.raises(ValueError):
+        G.fused_gnn_forward(packed._replace(wt_2r=packed.wt_2r.float()), *ins)
     # an edge index past the node rows, or below -1, raises before a launch
     for k, bad in ((4, 128), (5, -2)):
         idx = ins[k].clone()
@@ -110,3 +126,61 @@ def test_unordered_slots_and_refusals(cuda):
         with pytest.raises(ValueError, match="edge indices"):
             G.fused_gnn_forward(packed, *ins[:k], idx, *ins[k + 1:])
         assert G.LAUNCHES["gnn_forward"] == n0
+
+
+# The GEMM's epilogues: (bias, residuals, relu, outputs), together every option.
+EPILOGUES = {
+    "none": (False, 0, False, "f32"),
+    "bias": (True, 0, False, "f32"),
+    "bias_relu": (True, 0, True, "bf16"),
+    "r1_relu": (False, 1, True, "both"),
+    "bias_r1_r2_relu": (True, 2, True, "both"),
+}
+
+
+@pytest.mark.parametrize("M,N,K", [(256, 128, 512), (1000, 512, 512), (63000, 512, 512),
+                                   (1000, 1024, 512), (1000, 8, 512), (300, 256, 1024)])
+@pytest.mark.parametrize("epilogue", list(EPILOGUES))
+def test_gemm_matches_plain(cuda, M, N, K, epilogue):
+    """The tensor-core GEMM against the same bf16 operands multiplied in
+    f64, ragged M (1000, 63,000 rows: TMA fills the last tile with zeros)
+    and N = 8 (a weight copy padded to 128 rows) included."""
+    use_bias, n_res, relu, outs = EPILOGUES[epilogue]
+    g = torch.Generator(device=cuda).manual_seed(M + N + K)
+    x = torch.randn(M, K, device=cuda, generator=g).to(torch.bfloat16)
+    w = (torch.randn(N, K, device=cuda, generator=g) / K ** 0.5).to(torch.bfloat16)
+    rows = -(-N // G.GEMM_BN) * G.GEMM_BN
+    wt = torch.cat([w, w.new_zeros(rows - N, K)]).contiguous()
+    bias = torch.randn(N, device=cuda, generator=g) if use_bias else None
+    res = [torch.randn(M, N, device=cuda, generator=g) for _ in range(n_res)]
+    r1, r2 = (res + [None, None])[:2]
+    n0 = G.LAUNCHES["gnn_gemm"]
+    y, yb = G.gnn_gemm(x, wt, N, bias=bias, r1=r1, r2=r2, relu=relu,
+                       f32=outs != "bf16", bf16=outs != "f32")
+    assert G.LAUNCHES["gnn_gemm"] == n0 + 1
+    torch.cuda.synchronize()
+    ref = x.double() @ w.double().t()
+    for extra in (bias, r1, r2):
+        if extra is not None:
+            ref = ref + extra.double()
+    if relu:
+        ref = torch.relu(ref)
+    # products of bf16 values are exact in f32; a K-term f32 sum in any
+    # order, rounding or truncating each add (as a tensor core may), is
+    # within K * 2^-23 of the sum of the terms' magnitudes, and each of the
+    # epilogue's three adds rounds once more
+    mag = x.abs().double() @ w.abs().double().t()
+    for extra in (bias, r1, r2):
+        if extra is not None:
+            mag = mag + extra.abs().double()
+    bound = (K + 3) * 2.0 ** -23 * mag
+    if y is not None:
+        assert y.shape == (M, N) and y.dtype == torch.float32
+        assert ((y.double() - ref).abs() <= bound).all()
+    if yb is not None:
+        assert yb.shape == (M, N) and yb.dtype == torch.bfloat16
+        # and the rounding to bf16, nearest even: at most half an ulp,
+        # 2^-8 of the value
+        assert ((yb.double() - ref).abs() <= bound * (1 + 2.0 ** -8)
+                + 2.0 ** -8 * ref.abs()).all()
+    assert (y is None) == (outs == "bf16") and (yb is None) == (outs == "f32")

@@ -7,6 +7,7 @@ Real inputs: the trained rope weights and the particle trajectory committed
 under benchmarks/out/.
 """
 
+import functools
 import os
 
 import jax
@@ -183,6 +184,38 @@ def test_rollout_plain_version_matches_gsdx_twin(rng, scene, sort_chunks):
                                   np.asarray(ref["action_seqs"]))
     moved = np.abs(out["state_seqs"].numpy() - scene["state"]).max()
     assert moved > 1e-3  # the pushes did something
+
+
+def test_rollout_bf16_operands_match_gsdx_module_rollout(rng, scene, monkeypatch):
+    """The kernels' numerics over chained pushes: the rollout through the
+    plain version with bf16 product operands against gsdx's module rollout
+    on bf16-rounded weights (tests/test_gnn_fused.py's fused-vs-plain
+    setup)."""
+    from gsdx_torch.kernels import gnn_forward as tg
+    from gsdx_torch.plan import dynamics_rollout
+
+    monkeypatch.setattr(dynamics_rollout, "gnn_forward_plain",
+                        functools.partial(tg.gnn_forward_plain, operands="bf16"))
+    acts = _acts(rng, scene["state"], 16)
+    params_bf = jax.tree.map(lambda x: x.astype(jnp.bfloat16).astype(jnp.float32),
+                             scene["jparams"])
+    ref = j_rollout(JModel(JModelConfig()), JSpec(**SPEC, sort_chunks=1, fused="off"))(
+        params_bf, jnp.asarray(scene["state"]), jnp.asarray(acts))
+    roll_t = make_batched_rollout(scene["model"], RolloutSpec(**SPEC, sort_chunks=1,
+                                                              fused="twin"))
+    with torch.no_grad():
+        out = roll_t(torch.as_tensor(scene["state"]), torch.as_tensor(acts))
+    # the bound gsdx holds its bf16-class fused rollout to, over up to 4
+    # chained pushes
+    np.testing.assert_allclose(out["state_seqs"].numpy(), np.asarray(ref["state_seqs"]),
+                               rtol=0, atol=2e-3)
+    # the operands were rounded: the f32 twin gives another rollout
+    with torch.no_grad():
+        monkeypatch.undo()
+        f32 = make_batched_rollout(scene["model"], RolloutSpec(
+            **SPEC, sort_chunks=1, fused="twin"))(torch.as_tensor(scene["state"]),
+                                                  torch.as_tensor(acts))
+    assert not torch.equal(f32["state_seqs"], out["state_seqs"])
 
 
 def test_rollout_module_path_matches_gsdx(rng, scene):
