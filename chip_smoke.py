@@ -5,11 +5,20 @@
 Phases, each printing one JSON line:
   1. card + build: the card's name and power limit; nvcc builds the
      compositor, GNN and GNN GEMM kernel libraries from gsdx_torch/csrc, in
-     parallel; each kernel's registers and spills, and `cuobjdump -sass`
-     must find HGMMA (wgmma) instructions in the GEMM kernel.
+     parallel; each kernel's registers and spills (a compositor kernel that
+     spills fails), and `cuobjdump -sass` must find HGMMA (wgmma)
+     instructions in the GEMM kernel.
   2. kernels: each compositor variant (forward, forward with presort,
      backward, backward with presort) against its plain PyTorch version on
-     real 720p tile inputs (8192 and 16384 Gaussians); the GNN GEMM at the
+     real 720p tile inputs (8192 and 16384 Gaussians, and a saturating
+     scene), with the non-empty tiles, the share of (splat, warp patch)
+     pairs that `alpha_cut_box` keeps, the cluster size and blocks read back
+     from the launch (clusters of >= 2 blocks required), a backward run
+     twice that must be bit-equal, a single call's median ms (the launch
+     gap included, as PRs 1-3 timed it) and the kernel's device ms a call
+     from `torch.profiler`, and the card's bound for the visible pairs'
+     work and the bytes the function needs, beside a bound that charges
+     every processed pair its falloff; the GNN GEMM at the
      `w2r` edge shape (63,000 x 512 x 512) against its plain version and
      `torch.matmul`; the fused GNN forward against its plain version at
      rope width (125 samples, 128 node slots, 504 edge slots; trained
@@ -28,7 +37,7 @@ Phases, each printing one JSON line:
      rollout against the module rollout on 16 samples.
   6. profile: `torch.profiler` breakdown of a 5k rasterize fwd+bwd, of one
      tracking iteration and of one MPPI iteration: device time by kernel,
-     device idle share.
+     the compositor kernels' device ms, device idle share.
   7. cli: `python -m gsdx_torch.apps.track` on a small synthetic episode,
      and `python -m gsdx_torch.apps.plan --env fake` on the committed
      rope checkpoint.
@@ -91,6 +100,30 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+def kernel_device_ms(fn, pattern: str, calls: int = 30, warmup: int = 3) -> float:
+    """Device time a call of ``fn`` in ms, of the kernels whose name matches
+    ``pattern``, from `torch.profiler` over ``calls`` calls: the kernel's own
+    time, whatever the host's launch work costs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    # now and then a session records no kernel at all (seen once in some 250
+    # sessions of tools/composite_ablation.py): take another
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and re.search(pattern, e.key))
+        if us:
+            return us / 1e3 / calls
+    raise AssertionError(f"the profiler saw no device time of {pattern!r} in 3 sessions")
+
+
 def cuda_ms_back_to_back(fn, reps: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn`` in ms over ``reps`` calls queued back to
     back between two CUDA events: the device's time per call, with the
@@ -129,9 +162,11 @@ def camera(device="cuda", cam_id=0, w2c=None):
                        device=device)
 
 
-def tile_inputs(n: int, original_order: bool, saturating: bool = False):
+def tile_inputs(n: int, original_order: bool, saturating: bool = False,
+                tile_h: int = 0):
     """Tile features of an n-Gaussian 720p scene with 6 colour channels,
-    projected and binned by the port as `rasterize` does."""
+    projected and binned by the port as `rasterize` does (``tile_h`` 0:
+    `rasterize`'s choice for n)."""
     from gsdx_torch.kernels.composite import FEAT_DIM
     from gsdx_torch.render.binning import bin_gaussians
     from gsdx_torch.render.projection import project_gaussians
@@ -142,7 +177,7 @@ def tile_inputs(n: int, original_order: bool, saturating: bool = False):
         np.random.default_rng(0), n, n_chan=6,
         scale=(0.05, 0.15) if saturating else (0.005, 0.02))
     cam = camera()
-    cfg = resolve_binning(RasterizeConfig(), n)
+    cfg = resolve_binning(RasterizeConfig(tile_h=tile_h), n)
     grid = tile_grid(cam, cfg)
     proj = project_gaussians(means, quats, scales, cam)
     bins = bin_gaussians(proj.mean2d, proj.radius, proj.depth, proj.mask, grid,
@@ -157,33 +192,83 @@ def tile_inputs(n: int, original_order: bool, saturating: bool = False):
     return tf, bins.counts, geo
 
 
-def pair_counts(tf, counts, nproc, geo) -> tuple[int, int]:
-    """(processed, visible) (splat, pixel) pairs of the processed prefixes:
-    processed = sum over tiles of min(count, nproc * sub) * P; visible =
-    those pairs whose alpha passes the 1/255 cut."""
-    from gsdx_torch.kernels.composite import ALPHA_MAX, ALPHA_MIN, _pixel_coords
+def pair_counts(tf, counts, nproc, geo) -> dict:
+    """(splat, pixel) pairs of the processed prefixes: `processed` = sum over
+    tiles of min(count, nproc * sub) * P; `visible` = those whose alpha
+    passes the 1/255 cut; `in_box` = those inside the splat's alpha-cut box
+    (`alpha_cut_box`); `visible_outside_box` = visible pairs outside it,
+    which a conservative box never has. And (splat, warp patch) pairs: `patch_pairs` of the
+    processed prefixes, `patch_kept` = those whose box touches the patch,
+    the splats the kernels' warps evaluate."""
+    from gsdx_torch.kernels.composite import (
+        ALPHA_MAX, ALPHA_MIN, KERNEL_PATCH_H, KERNEL_PATCH_W, _pixel_coords,
+        alpha_cut_box)
 
     sub, P = geo["sub_chunk"], geo["tile_h"] * geo["tile_w"]
+    tiles_x, tile_h, tile_w = geo["tiles_x"], geo["tile_h"], geo["tile_w"]
+    patch_w = KERNEL_PATCH_W
+    n_patches = P // (KERNEL_PATCH_H * patch_w)
     ceff = torch.minimum(counts.long(), nproc.long() * sub)
-    processed = int(ceff.sum()) * P
-    visible = 0
+    out = {"processed": int(ceff.sum()) * P, "visible": 0, "in_box": 0,
+           "visible_outside_box": 0,
+           "patch_pairs": int(ceff.sum()) * n_patches, "patch_kept": 0}
     with torch.no_grad():
         for b0 in range(0, tf.shape[0], 16):
             cf, ce = tf[b0:b0 + 16], ceff[b0:b0 + 16]
             kb = max(1, int(ce.max()))
             cf = cf[:, :, :kb]
-            px, py = _pixel_coords(torch.arange(b0, b0 + cf.shape[0],
-                                                device=tf.device),
-                                   geo["tiles_x"], geo["tile_h"], geo["tile_w"])
+            tiles = torch.arange(b0, b0 + cf.shape[0], device=tf.device)
+            px, py = _pixel_coords(tiles, tiles_x, tile_h, tile_w)
             dx = px[:, None, :] - cf[:, 0, :, None]
             dy = py[:, None, :] - cf[:, 1, :, None]
             power = (-0.5 * (cf[:, 2, :, None] * dx * dx + cf[:, 4, :, None] * dy * dy)
                      - cf[:, 3, :, None] * dx * dy)
             a = torch.clamp(cf[:, 5, :, None] * torch.exp(power), max=ALPHA_MAX)
             slot = torch.arange(kb, device=tf.device)[None, :, None]
-            vis = (power <= 0) & (a >= ALPHA_MIN) & (slot < ce[:, None, None])
-            visible += int(vis.sum())
-    return processed, visible
+            live = slot < ce[:, None, None]
+            visible = (power <= 0) & (a >= ALPHA_MIN) & live
+            out["visible"] += int(visible.sum())
+            x0, x1, y0, y1 = (b[:, :, None] for b in alpha_cut_box(cf))
+            # a NaN edge is inside, as the kernels' test has it
+            inside = ~((x1 < px[:, None]) | (x0 > px[:, None])
+                       | (y1 < py[:, None]) | (y0 > py[:, None]))
+            out["in_box"] += int((inside & live).sum())
+            out["visible_outside_box"] += int((visible & ~inside).sum())
+            # the patches' origins, row-major
+            q = torch.arange(n_patches, device=tf.device)
+            per_row = tile_w // patch_w
+            ox = ((tiles % tiles_x) * tile_w)[:, None] + (q % per_row) * patch_w
+            oy = ((tiles // tiles_x) * tile_h)[:, None] + (q // per_row) * KERNEL_PATCH_H
+            ox, oy = ox[:, None].float(), oy[:, None].float()
+            hits = ~((x1 < ox) | (x0 > ox + patch_w - 1)
+                     | (y1 < oy) | (y0 > oy + KERNEL_PATCH_H - 1))
+            out["patch_kept"] += int((hits & live).sum())
+    return out
+
+
+def needed_bytes(counts, nproc, geo, K: int, presort: bool) -> tuple[int, int]:
+    """Bytes the forward and the backward must move: each input they need
+    read once, each output written once. The forward reads the 6 + n_accum
+    rows of its processed prefix's columns (with presort, all 16 x K of a
+    non-empty tile, which `sorted_feats` holds) and writes its outputs
+    dense; the backward reads the prefix's rows, its rank entries and the
+    pixel inputs of the tiles that have a prefix, and writes the dense
+    gradient."""
+    nacc, sub = geo["n_accum"], geo["sub_chunk"]
+    T = counts.shape[0]
+    P = geo["tile_h"] * geo["tile_w"]
+    ceff = torch.minimum(counts.long(), nproc.long() * sub)
+    cols, live = int(ceff.sum()), int((ceff > 0).sum())
+    nrow = 6 + nacc
+    feats_f = live * 16 * K if presort else nrow * cols
+    fwd = 4 * (T + feats_f                              # counts, features
+               + T * (nacc + 1) * P + T                 # accum, logt, nproc
+               + (T * 17 * K if presort else 0))        # rank, sorted_feats
+    bwd = 4 * (2 * T + nrow * cols                      # counts, nproc, features
+               + (cols if presort else 0)               # rank
+               + live * (nacc + 2) * P                  # logt, g_accum, g_logt
+               + T * 16 * K)                            # gradient
+    return fwd, bwd
 
 
 def bound_ms(bytes_moved, flops, mufu, clk_mhz) -> tuple[float, str]:
@@ -193,11 +278,14 @@ def bound_ms(bytes_moved, flops, mufu, clk_mhz) -> tuple[float, str]:
     return (1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-# Arithmetic per (splat, pixel) pair, counted from csrc/composite.cu: every
-# processed pair evaluates the falloff (power: 8 flops, exp: 1 MUFU); a
-# visible pair adds, forward: alpha, w, log T and 2 flops per channel plus
-# log1p and exp (2 MUFU); backward: those plus dL/dw, dalpha, the six
-# geometry terms and 4 flops per channel, and a division (3 MUFU).
+# Arithmetic per (splat, pixel) pair, counted from csrc/composite.cu. The
+# work the function needs is that of the visible pairs: the falloff (power:
+# 8 flops, exp: 1 MUFU), then forward: alpha, w, log T and 2 flops per
+# channel plus log1p and exp (2 MUFU); backward: those plus dL/dw, dalpha,
+# the six geometry terms and 4 flops per channel, and a division (3 MUFU).
+# A bound that also charges the falloff to every processed pair, which a
+# culling kernel no longer evaluates, is printed beside it as
+# `bound_ms_processed_pairs`.
 FLOPS_ALL = 8
 FWD_FLOPS_VIS = lambda nacc: 6 + 2 * nacc  # noqa: E731
 BWD_FLOPS_VIS = lambda nacc: 30 + 4 * nacc  # noqa: E731
@@ -227,7 +315,9 @@ def ptxas_report(logs) -> dict:
             name = next((k for k in ("gnn_gemm", "gnn_linear", "gnn_edge_first",
                                      "gnn_message", "fwd", "bwd")
                          if re.search(rf"\d{k}_kernel", m.group(1))), m.group(1))
-            name = {"fwd": "composite_fwd", "bwd": "composite_bwd"}.get(name, name)
+            if name in ("fwd", "bwd"):  # one entry per n_accum instantiation
+                nacc = re.search(rf"{name}_kernelILi(\d+)E", m.group(1))
+                name = f"composite_{name}_nacc{nacc.group(1) if nacc else '?'}"
             report.setdefault(name, {})
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and name:
@@ -256,9 +346,17 @@ def phase_build() -> dict:
     hgmma = sum(ln.count("HGMMA") for part in gemm_sass for ln in part.splitlines())
     if not hgmma:
         raise AssertionError("no HGMMA instruction in the GEMM kernel's SASS")
+    ptxas = ptxas_report(logs)
+    composite = {k: v for k, v in ptxas.items() if k.startswith("composite_")}
+    if len(composite) != 4:
+        raise AssertionError(f"ptxas reported {sorted(composite)}: expected the "
+                             "forward and backward at n_accum 4 and 7")
+    spills = {k: v.get("spill_bytes") for k, v in composite.items() if v.get("spill_bytes")}
+    if spills:
+        raise AssertionError(f"compositor kernels spill registers: {spills}")
     return {"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
             "libraries": [lib.path().name for lib in libs],
-            "ptxas": ptxas_report(logs), "gemm_hgmma_instructions": hgmma,
+            "ptxas": ptxas, "gemm_hgmma_instructions": hgmma,
             "kernels": ["composite_fwd", "composite_fwd_presort",
                         "composite_bwd", "composite_bwd_presort",
                         "gnn_linear", "gnn_gemm", "gnn_edge_first", "gnn_message"]}
@@ -275,6 +373,7 @@ def compare_kernels(n: int, presort: bool, clk_mhz: float,
     nacc = geo["n_accum"]
     kw = dict(geo, presort=presort)
     out_k = C.composite_fwd(tf, counts, **kw)
+    launch_f = C.last_launch()  # as the C side launched it
     with torch.no_grad():
         out_p = C.composite_tiles_torch(tf, counts, **kw)
     torch.cuda.synchronize()
@@ -297,6 +396,7 @@ def compare_kernels(n: int, presort: bool, clk_mhz: float,
     rank = out_k[3] if presort else None
     args_b = (feats_b, counts, nproc_k, out_k[1], g_acc, g_lt, rank)
     grad_k = C.composite_bwd(*args_b, **geo)
+    launch_b = C.last_launch()
     args_p = (feats_b, counts, nproc_k, g_acc, g_lt, rank)
     grad_p = C.composite_bwd_torch(*args_p, **geo)
     torch.cuda.synchronize()
@@ -307,36 +407,63 @@ def compare_kernels(n: int, presort: bool, clk_mhz: float,
     torch.testing.assert_close(grad_k / scale, grad_p / scale, rtol=0,
                                atol=REL_TOL)
     err_b = float((grad_k - grad_p).abs().max())
+    repeat_equal = bool(torch.equal(C.composite_bwd(*args_b, **geo), grad_k))
+    if not repeat_equal:
+        raise AssertionError("the backward kernel differs between two runs")
     err_b_rel = float(((grad_k - grad_p).abs() / scale).max())
 
+    # the median single call, with the launch gap in it (PRs 1-3's `ms`),
+    # and the kernel's own device time a call
     ms_fk = cuda_ms(lambda: C.composite_fwd(tf, counts, **kw))
-    ms_fp = cuda_ms(lambda: C.composite_tiles_torch(tf, counts, **kw), reps=3, warmup=1)
     ms_bk = cuda_ms(lambda: C.composite_bwd(*args_b, **geo))
+    dev_fk = kernel_device_ms(lambda: C.composite_fwd(tf, counts, **kw), r"\bfwd_kernel<")
+    dev_bk = kernel_device_ms(lambda: C.composite_bwd(*args_b, **geo), r"\bbwd_kernel<")
+    ms_fp = cuda_ms(lambda: C.composite_tiles_torch(tf, counts, **kw), reps=3, warmup=1)
     ms_bp = cuda_ms(lambda: C.composite_bwd_torch(*args_p, **geo), reps=3, warmup=1)
 
-    processed, visible = pair_counts(feats_b, counts, nproc_k, geo)
-    in_b = T * (16 * K + 1) * 4
-    out_f = T * (nacc + 1) * P * 4 + T * 4 + (T * 17 * K * 4 if presort else 0)
-    b_f = bound_ms(in_b + out_f, FLOPS_ALL * processed + FWD_FLOPS_VIS(nacc) * visible,
-                   processed + 2 * visible, clk_mhz)
-    in_bwd = in_b + T * 4 + T * (2 * P + nacc * P) * 4 + (T * K * 4 if presort else 0)
-    b_b = bound_ms(in_bwd + T * 16 * K * 4,
-                   FLOPS_ALL * processed + BWD_FLOPS_VIS(nacc) * visible,
-                   processed + 3 * visible, clk_mhz)
+    pairs = pair_counts(feats_b, counts, nproc_k, geo)
+    processed, visible = pairs["processed"], pairs["visible"]
+    if pairs["visible_outside_box"]:
+        raise AssertionError(f"{pairs['visible_outside_box']} visible pairs lie outside "
+                             "their alpha_cut_box")
+    bytes_f, bytes_b = needed_bytes(counts, nproc_k, geo, K, presort)
+    # the visible pairs' work (the bound), and with every processed pair's
+    # falloff
+    b_f = bound_ms(bytes_f, (FLOPS_ALL + FWD_FLOPS_VIS(nacc)) * visible,
+                   3 * visible, clk_mhz)
+    b_b = bound_ms(bytes_b, (FLOPS_ALL + BWD_FLOPS_VIS(nacc)) * visible,
+                   4 * visible, clk_mhz)
+    b_f_old = bound_ms(bytes_f, FLOPS_ALL * processed + FWD_FLOPS_VIS(nacc) * visible,
+                       processed + 2 * visible, clk_mhz)
+    b_b_old = bound_ms(bytes_b, FLOPS_ALL * processed + BWD_FLOPS_VIS(nacc) * visible,
+                       processed + 3 * visible, clk_mhz)
     suffix = "_presort" if presort else ""
     stopped = int((nproc_k.long() * geo["sub_chunk"] < counts.long()).sum())
     if saturating and not stopped:
         raise AssertionError("the saturating scene never stopped early")
+    for what, launch in (("forward", launch_f), ("backward", launch_b)):
+        if launch["cluster"] < 2 or launch["blocks"] != T * launch["cluster"]:
+            raise AssertionError(f"{what} launched {launch}: expected clusters of "
+                                 f">= 2 blocks, {T} of them")
     common = {"n": n, "saturating": saturating, "T": T, "K": K, "P": P,
-              "sub": geo["sub_chunk"],
-              "n_accum": nacc, "pairs_processed": processed,
-              "pairs_visible": visible, "nproc_flips": flips,
-              "early_stopped_tiles": stopped}
+              "sub": geo["sub_chunk"], "tile_h": geo["tile_h"],
+              "n_accum": nacc, "nonempty_tiles": int((counts > 0).sum()),
+              "pairs_processed": processed, "pairs_visible": visible,
+              "pairs_in_box": pairs["in_box"],
+              "pairs_visible_outside_box": pairs["visible_outside_box"],
+              "patch_pairs": pairs["patch_pairs"], "patch_pairs_kept": pairs["patch_kept"],
+              "kept_share": pairs["patch_kept"] / max(1, pairs["patch_pairs"]),
+              "nproc_flips": flips, "early_stopped_tiles": stopped}
     return [
         dict(common, name="composite_fwd" + suffix, max_abs_err=err_f,
-             ms=ms_fk, plain_ms=ms_fp, bound_ms=b_f[0], bound_by=b_f[1]),
+             ms=ms_fk, device_ms=dev_fk, plain_ms=ms_fp, bound_ms=b_f[0],
+             bound_by=b_f[1], bound_bytes=bytes_f,
+             bound_ms_processed_pairs=b_f_old[0], launch=launch_f),
         dict(common, name="composite_bwd" + suffix, max_abs_err=err_b,
-             max_row_rel_err=err_b_rel, ms=ms_bk, plain_ms=ms_bp, bound_ms=b_b[0], bound_by=b_b[1]),
+             max_row_rel_err=err_b_rel, ms=ms_bk, device_ms=dev_bk,
+             plain_ms=ms_bp, bound_ms=b_b[0], bound_by=b_b[1], bound_bytes=bytes_b,
+             bound_ms_processed_pairs=b_b_old[0], launch=launch_b,
+             bitwise_repeatable=repeat_equal),
     ]
 
 
@@ -826,37 +953,25 @@ def device_profile(fn, what: str, steps: int = 5, top: int = 12) -> dict:
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     kernels.sort(key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
+    composite_ms = sum(k[1] for k in kernels if re.search(r"\b(fwd|bwd)_kernel<", k[0]))
     return {"phase": "profile", "what": what, "wall_ms_per_call": wall_ms,
             "profiled_wall_ms_per_call": profiled_wall_ms,
             "device_busy_ms_per_call": busy_ms,
+            "compositor_device_ms_per_call": composite_ms,
             "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
             "launches_per_call": sum(k[2] for k in kernels),
             "top_kernels": [{"name": n[:80], "ms": ms, "calls": c}
                             for n, ms, c in kernels[:top]]}
 
 
-def phase_profile() -> list[dict]:
-    """Device breakdown of a 5k-Gaussian 720p rasterize fwd+bwd, of one t=0
-    tracking iteration of the slice's scene (densification off) and of one
-    MPPI iteration of the plan phase."""
+def tracking_iteration():
+    """One t=0 tracking iteration of the slice's scene (densification off),
+    as a function of no arguments."""
     from gsdx_torch.core.gaussians import init_gaussian_params, init_tracking_variables
     from gsdx_torch.kernels.knn import knn
-    from gsdx_torch.render.rasterize import RasterizeConfig, rasterize
     from gsdx_torch.track.densify import DensifyConfig
     from gsdx_torch.track.optimizer import GroupAdam, tracking_lrs
     from gsdx_torch.track.trainer import TrackingConfig, make_fit_timestep
-
-    cam = camera()
-    target = torch.zeros(3, H, W, device="cuda")
-    args = scene(np.random.default_rng(0), 5000)
-    for a in args:
-        a.requires_grad_(True)
-
-    def raster_step():
-        out = rasterize(*args, cam, RasterizeConfig())
-        torch.autograd.grad(torch.abs(out.im - target).mean(), args)
-
-    rows = [device_profile(raster_step, "rasterize fwd+bwd, 5000 Gaussians, 720p")]
 
     cams, ims, segs, noisy = slice_inputs()
     sq, _ = knn(torch.as_tensor(noisy[:, :3], device="cuda"), 3)
@@ -872,8 +987,28 @@ def phase_profile() -> list[dict]:
     def track_iter():
         fit(params, *state, lrs, cams, ims[0], segs[0], np.zeros(1, np.int32))
 
+    return track_iter
+
+
+def phase_profile() -> list[dict]:
+    """Device breakdown of a 5k-Gaussian 720p rasterize fwd+bwd, of one t=0
+    tracking iteration of the slice's scene (densification off) and of one
+    MPPI iteration of the plan phase."""
+    from gsdx_torch.render.rasterize import RasterizeConfig, rasterize
+
+    cam = camera()
+    target = torch.zeros(3, H, W, device="cuda")
+    args = scene(np.random.default_rng(0), 5000)
+    for a in args:
+        a.requires_grad_(True)
+
+    def raster_step():
+        out = rasterize(*args, cam, RasterizeConfig())
+        torch.autograd.grad(torch.abs(out.im - target).mean(), args)
+
+    rows = [device_profile(raster_step, "rasterize fwd+bwd, 5000 Gaussians, 720p")]
     rows.append(device_profile(
-        track_iter, "tracking iteration t=0, 4 cameras, 720p, capacity 8192"))
+        tracking_iteration(), "tracking iteration t=0, 4 cameras, 720p, capacity 8192"))
 
     planner, state, init, _ = plan_setup(1000, 1)
     gen = torch.Generator(device="cuda").manual_seed(43)

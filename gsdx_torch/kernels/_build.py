@@ -54,11 +54,13 @@ class CudaLibrary:
 
     def build(self) -> str:
         """Run `nvcc` unless the library for this exact source is built.
-        Returns the compiler's output (register and spill report), empty if
-        nothing was built. Raises if the compile failed."""
+        Returns the compiler's output (register and spill report), kept
+        beside the library for a later call that finds it built. Raises if
+        the compile failed."""
         out = self.path()
+        log_path = out.with_suffix(".log")
         if out.exists():
-            return ""
+            return log_path.read_text() if log_path.exists() else ""
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
@@ -67,6 +69,7 @@ class CudaLibrary:
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed on {self.source.name} "
                                f"({res.returncode}):\n{log}")
+        log_path.write_text(log)
         os.replace(tmp, out)
         return log
 

@@ -1,15 +1,21 @@
 """Tile compositor: front-to-back alpha compositing per screen tile
 (counterpart of `gsdx/kernels/composite.py`).
 
-Four pieces:
+Five pieces:
 
   * `composite_tiles_torch` — the plain PyTorch version, differentiable by
     autograd; the CPU path and the kernels' oracle.
   * `composite_fwd` / `composite_bwd` — wrappers of the hand-written CUDA
     kernels in `gsdx_torch/csrc/composite.cu` (the Hopper ports of gsdx's
-    Pallas `_fwd_kernel` and `_bwd_kernel`). A CUDA tensor launches the
-    kernel or raises; only CPU tensors take the plain version.
-  * `LAUNCHES` — per-variant kernel launch counts.
+    Pallas `_fwd_kernel` and `_bwd_kernel`: each tile split over a
+    thread-block cluster, each warp culling splats by their alpha-cut box).
+    A CUDA tensor launches the kernel or raises; only CPU tensors take the
+    plain version.
+  * `alpha_cut_box` — the kernels' culling rule in plain PyTorch, for the
+    tests and `chip_smoke.py`; the kernels compute it themselves.
+  * `LAUNCHES` — per-variant kernel launch counts; `last_launch` — the
+    cluster size, blocks and threads of the last launch, read back from
+    the library.
   * `LIBRARY`, the lazy build (`kernels/_build.py`): `nvcc` compiles the
     source into a shared library with a plain C interface at first use,
     loaded with ctypes.
@@ -27,6 +33,9 @@ rank and the sorted features that the backward consumes.
 """
 
 from __future__ import annotations
+
+import ctypes
+import math
 
 import torch
 import torch.utils.checkpoint
@@ -47,7 +56,18 @@ LAUNCHES = {"fwd": 0, "fwd_presort": 0, "bwd": 0, "bwd_presort": 0}
 
 # What the CUDA kernels take (see csrc/composite.cu).
 KERNEL_N_ACCUM = (4, 7)
-KERNEL_PIXELS_PER_THREAD = 8
+KERNEL_PATCH_H, KERNEL_PATCH_W = 4, 16  # a warp's pixel patch
+
+# Margins of the alpha-cut box against f32 rounding (csrc/composite.cu
+# `cut_box` uses the same): the cut's log-space radius grows by a*c/det
+# times CUT_COND_SLACK (rounding of the power's terms) and by CUT_ABS_SLACK
+# (exp and the cut's own rounding); each half-extent by CUT_REL_MARGIN of
+# itself and CUT_PX_MARGIN pixels.
+CUT_COND_SLACK = 1e-5
+CUT_ABS_SLACK = 1e-4
+CUT_REL_MARGIN = 1e-3
+CUT_PX_MARGIN = 1.0
+LOG_255 = math.log(255.0)
 
 
 def reset_launches() -> None:
@@ -89,6 +109,41 @@ def presort_rank(tile_feats: torch.Tensor, counts: torch.Tensor,
     rank = torch.empty_like(perm)
     rank.scatter_(1, perm, slot.expand(T, K).contiguous())
     return perm, rank
+
+
+def alpha_cut_box(tile_feats: torch.Tensor):
+    """Per-column box (x0, x1, y0, y1), each (T, K) f32, that holds every
+    pixel where the column's splat can pass the alpha cut: the bounding box
+    of {opacity * exp(power) >= 1/255}, half-extents
+    sqrt(2 ln(255 op) c / (a c - b^2)) and sqrt(2 ln(255 op) a / (a c - b^2)),
+    widened by the CUT_* margins.
+
+    Opacity below 1/255 gives an empty box (x0 = y0 = inf, x1 = y1 = -inf);
+    a conic that is not positive definite (a <= 0 or a c - b^2 <= 0) an
+    unbounded one; a NaN input a NaN box, which no test may cull. Pixel
+    coordinates are integer indices (`_pixel_coords`). The kernels compute
+    the same rule per granule; this copy is for the tests and the card's
+    pair counts.
+    """
+    f = tile_feats.detach().float()
+    mx, my, a, b, c, op = (f[:, i] for i in range(6))
+    det = a * c - b * b
+    cut = 2.0 * (torch.log(op) + LOG_255)
+    cut = torch.where(cut < 0, torch.zeros_like(cut), cut)
+    cut = cut * (1.0 + CUT_COND_SLACK * (a * c / det)) + CUT_ABS_SLACK
+    hx = torch.sqrt(cut * c / det) * (1.0 + CUT_REL_MARGIN) + CUT_PX_MARGIN
+    hy = torch.sqrt(cut * a / det) * (1.0 + CUT_REL_MARGIN) + CUT_PX_MARGIN
+    inf = torch.full_like(mx, math.inf)
+    empty = op < ALPHA_MIN
+    pd = (a > 0) & (det > 0)
+
+    def side(lo, centre, half):
+        bounded = centre - half if lo else centre + half
+        unbounded = -inf if lo else inf
+        return torch.where(empty, inf if lo else -inf,
+                           torch.where(pd, bounded, unbounded))
+
+    return side(True, mx, hx), side(False, mx, hx), side(True, my, hy), side(False, my, hy)
 
 
 def _composite_batch(cf, counts, tile_idx, nproc_in, *, tiles_x, tile_h,
@@ -226,8 +281,17 @@ def composite_bwd_torch(feats, counts, nproc, g_accum, g_logt, rank=None, *,
 LIBRARY = CudaLibrary(
     "gsdx_composite", "composite.cu",
     {"gsdx_composite_fwd": [PTR] * 7 + [I32] * 9 + [PTR],
-     "gsdx_composite_bwd": [PTR] * 8 + [I32] * 8 + [PTR]},
+     "gsdx_composite_bwd": [PTR] * 8 + [I32] * 8 + [PTR],
+     "gsdx_composite_last_launch": [PTR]},
     error_string="gsdx_cuda_error_string")
+
+
+def last_launch() -> dict:
+    """Cluster size, blocks and threads a block of the library's last
+    accepted compositor launch, as the C side launched it."""
+    out = (ctypes.c_int * 3)()
+    LIBRARY.load().gsdx_composite_last_launch(ctypes.cast(out, ctypes.c_void_p))
+    return {"cluster": out[0], "blocks": out[1], "threads": out[2]}
 
 
 def _check_inputs(tile_h, tile_w, n_accum, sub_chunk, K, **tensors):
@@ -244,9 +308,8 @@ def _check_inputs(tile_h, tile_w, n_accum, sub_chunk, K, **tensors):
         want = torch.int32 if name in ("counts", "nproc") else torch.float32
         if t.dtype != want:
             raise ValueError(f"{name} must be {want}, got {t.dtype}")
-    # one thread per column and KERNEL_PIXELS_PER_THREAD rows of a 128-wide
-    # tile: 128..512 threads
-    if tile_w != 128 or tile_h % KERNEL_PIXELS_PER_THREAD or not 8 <= tile_h <= 32:
+    # 128-wide tiles, each block of a cluster all of the tile's rows
+    if tile_w != 128 or tile_h % 8 or not 8 <= tile_h <= 32:
         raise ValueError(f"tile {tile_h}x{tile_w} unsupported: the kernels take "
                          "128-wide tiles of 8, 16, 24 or 32 rows")
     if n_accum not in KERNEL_N_ACCUM:

@@ -71,6 +71,10 @@ CASES = [  # (n, tile_h, K, sub, presort, saturating, n_chan)
     (400, 32, 256, 64, True, False, 3),
     (150, 8, 128, 32, False, True, 3),
     (150, 16, 128, 32, True, True, 6),
+    (400, 24, 256, 64, False, False, 3),
+    (400, 24, 256, 128, True, True, 6),
+    (3000, 16, 1024, 128, False, False, 6),
+    (3000, 32, 1024, 128, True, False, 3),
 ]
 
 
@@ -78,6 +82,121 @@ CASES = [  # (n, tile_h, K, sub, presort, saturating, n_chan)
 def test_kernels_match_plain_versions(cuda, n, tile_h, k, sub, presort,
                                       saturating, n_chan):
     tf, counts, geo = _tiles(cuda, 0, n, tile_h, k, presort, saturating, n_chan)
+    if k == 1024:
+        assert int(counts.max()) > 896, "the scene must fill the last granule"
+    _check_against_plain(tf, counts, geo, sub, presort, saturating)
+
+
+def test_empty_tiles_between_full_ones(cuda):
+    tf, counts, geo = _tiles(cuda, 0, 150, 16, 128, False, saturating=True)
+    counts = counts.clone()
+    counts[1::2] = 0
+    assert (counts == 128).any() and (counts[0::2] > 0).all()
+    for presort in (False, True):
+        _check_against_plain(tf, counts, geo, 32, presort, saturating=True)
+
+
+def _half_plane(x_edge, op, depth):
+    """A column whose alpha is `op` (to 1e-4) on every pixel with x <=
+    x_edge and zero right of it: conic (0, -1e-9, 0) and a mean far above
+    the tile make power = 1e-9 dx dy, negative left of the edge and skipped
+    (power > 0) right of it. Not positive definite, so never culled."""
+    col = torch.zeros(16)
+    col[0], col[1], col[3], col[5] = x_edge + 0.5, -1000.0, -1e-9, op
+    col[6:9] = torch.tensor([0.2, 0.5, 0.8])
+    col[9] = depth
+    return col
+
+
+def _stop_scene(tile_h, presort, seed=0):
+    """One tile (K 256, sub 32) whose early stop needs the cluster's OR:
+    granule 0 saturates every column <= 95, granule 1 those <= 111, granule
+    2 all of them, so after granules 0 and 1 only blocks right of rank 0
+    hold live pixels, and the tile stops after granule 2 (nproc 3). Every
+    other column is an ordinary splat inside the tile, which would change
+    the image if the walk went on. With ``presort`` the columns are
+    shuffled and their depth puts them back in order."""
+    rng = np.random.default_rng(seed)
+    K = 256
+    cols = []
+    for k in range(K):
+        g, s = divmod(k, 32)
+        if g < 3 and s < 3:
+            cols.append(_half_plane((95, 111, 127)[g], 0.99, float(k)))
+            continue
+        col = torch.zeros(16)
+        col[0], col[1] = rng.uniform(0, 128), rng.uniform(0, tile_h)
+        col[2] = col[4] = rng.uniform(0.02, 0.3)
+        col[3] = rng.uniform(-0.01, 0.01)
+        col[5] = rng.uniform(0.3, 0.9)
+        col[6:9] = torch.as_tensor(rng.uniform(0, 1, 3))
+        col[9] = float(k)
+        cols.append(col)
+    tf = torch.stack(cols, 1)[None]
+    if presort:
+        tf = tf[:, :, torch.as_tensor(rng.permutation(K))]
+    geo = dict(tiles_x=1, tile_h=tile_h, tile_w=128, n_accum=4)
+    return tf.contiguous(), torch.tensor([K], dtype=torch.int32), geo
+
+
+@pytest.mark.parametrize("tile_h", [8, 16, 32])
+@pytest.mark.parametrize("presort", [False, True])
+def test_early_stop_needs_every_block_of_the_cluster(cuda, tile_h, presort):
+    tf, counts, geo = _stop_scene(tile_h, presort)
+    kw = dict(geo, sub_chunk=32, presort=presort)
+    # the scene as designed, on the plain version: live pixels after
+    # granules 1 and 2 lie only right of columns 95 and 111, and the tile
+    # stops after granule 3
+    with torch.no_grad():
+        for g, edge in ((1, 95), (2, 111)):
+            logt = C.composite_tiles_torch(tf, counts, nproc=torch.tensor([g]), **kw)[1]
+            live = (logt[0, 0] >= C.LOG_T_STOP).reshape(tile_h, 128).any(0)
+            assert live.any() and int(live.nonzero().min()) > edge
+        assert int(C.composite_tiles_torch(tf, counts, **kw)[2][0]) == 3
+    _check_against_plain(tf.to(cuda), counts.to(cuda), geo, 32, presort, saturating=True)
+    assert C.last_launch()["cluster"] >= 2
+
+
+def _edge_scene(tile_h, seed=0):
+    """Two tiles of splats whose exact alpha-cut ellipse ends within 1e-3
+    px of a warp patch's edge (columns 16 i, rows 4 j), from either side,
+    so a box one pixel too tight would lose a visible pair."""
+    rng = np.random.default_rng(seed)
+    K = 128
+    tf = torch.zeros(2, 16, K)
+    for t in range(2):
+        for k in range(K):
+            op = rng.uniform(0.02, 1.0)
+            a, c = rng.uniform(0.05, 2.0, 2)
+            b = rng.uniform(-0.5, 0.5) * np.sqrt(a * c)
+            det = a * c - b * b
+            cut = 2 * np.log(255 * op)
+            rx, ry = np.sqrt(cut * c / det), np.sqrt(cut * a / det)
+            side = rng.choice([-1.0, 1.0])
+            jitter = rng.uniform(-1e-3, 1e-3)
+            if k % 2:  # ellipse edge on a column boundary
+                mx = t * 128 + 16 * rng.integers(1, 8) - side * rx + jitter
+                my = rng.uniform(0, tile_h)
+            else:  # on a row boundary
+                mx = t * 128 + rng.uniform(0, 128)
+                my = 4 * rng.integers(1, tile_h // 4 + 1) - side * ry + jitter
+            tf[t, :6, k] = torch.tensor([mx, my, a, b, c, op])
+            tf[t, 6:9, k] = torch.as_tensor(rng.uniform(0, 1, 3))
+            tf[t, 9, k] = rng.uniform(1, 5)
+    geo = dict(tiles_x=2, tile_h=tile_h, tile_w=128, n_accum=4)
+    return tf, torch.tensor([K, K], dtype=torch.int32), geo
+
+
+@pytest.mark.parametrize("tile_h", [16, 24])
+def test_box_edges_on_patch_edges(cuda, tile_h):
+    tf, counts, geo = _edge_scene(tile_h)
+    for presort in (False, True):
+        _check_against_plain(tf.to(cuda), counts.to(cuda), geo, 64, presort, False)
+
+
+def _check_against_plain(tf, counts, geo, sub, presort, saturating):
+    """Both kernels against their plain versions; the backward twice,
+    bit-equal."""
     kw = dict(geo, sub_chunk=sub, presort=presort)
     before = dict(C.LAUNCHES)
     out_k = C.composite_fwd(tf, counts, **kw)
@@ -96,13 +215,13 @@ def test_kernels_match_plain_versions(cuda, n, tile_h, k, sub, presort,
         torch.testing.assert_close(out_k[3], out_p[3], rtol=0, atol=0)
         torch.testing.assert_close(out_k[4], out_p[4], rtol=0, atol=0)
 
-    g = torch.Generator(device=cuda).manual_seed(1)
-    g_acc = torch.randn(out_k[0].shape, device=cuda, generator=g)
-    g_lt = torch.randn(out_k[1].shape, device=cuda, generator=g)
+    g = torch.Generator(device=tf.device).manual_seed(1)
+    g_acc = torch.randn(out_k[0].shape, device=tf.device, generator=g)
+    g_lt = torch.randn(out_k[1].shape, device=tf.device, generator=g)
     feats_b = out_k[4] if presort else tf
     geo_b = dict(geo, sub_chunk=sub)
-    grad_k = C.composite_bwd(feats_b, counts, out_k[2], out_k[1], g_acc, g_lt,
-                             out_k[3], **geo_b)
+    args_b = (feats_b, counts, out_k[2], out_k[1], g_acc, g_lt, out_k[3])
+    grad_k = C.composite_bwd(*args_b, **geo_b)
     grad_p = C.composite_bwd_torch(feats_b, counts, out_k[2], g_acc, g_lt,
                                    out_k[3], **geo_b)
     # reverse sums over the tile's pixels in another order: 1e-4 of each
@@ -111,6 +230,8 @@ def test_kernels_match_plain_versions(cuda, n, tile_h, k, sub, presort,
     scale = grad_p.abs().amax(dim=(0, 2), keepdim=True)
     scale = torch.where(scale > 0, scale, torch.ones_like(scale))
     torch.testing.assert_close(grad_k / scale, grad_p / scale, rtol=0, atol=1e-4)
+    # no atomics: the same sums in the same order on every run
+    assert torch.equal(C.composite_bwd(*args_b, **geo_b), grad_k)
 
 
 def test_rasterize_on_the_card_matches_cpu(cuda):
@@ -138,3 +259,23 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         C.composite_fwd(tf, counts, **dict(geo, n_accum=5), sub_chunk=64)
     with pytest.raises(ValueError, match="int32"):
         C.composite_fwd(tf, counts.long(), **geo, sub_chunk=64)
+
+
+def test_a_refused_launch_leaves_no_error_behind(cuda):
+    # a backward asking for more shared memory than the card has is refused
+    # with an error code; the launches after it must not report that error
+    tf, counts, geo = _tiles(cuda, 0, 100, 8, 128, False)
+    T, P = tf.shape[0], geo["tile_h"] * geo["tile_w"]
+    K = sub = 4096
+    feats = torch.zeros(T, 16, K, device=cuda)
+    pix = torch.zeros(T, geo["n_accum"], P, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = C.LIBRARY.load().gsdx_composite_bwd(
+        feats.data_ptr(), counts.data_ptr(), counts.data_ptr(), pix.data_ptr(),
+        pix.data_ptr(), pix.data_ptr(), None, feats.data_ptr(), T, K,
+        geo["tiles_x"], geo["tile_h"], geo["tile_w"], geo["n_accum"], sub, 0, stream)
+    assert err != 0
+    out = C.composite_fwd(tf, counts, **geo, sub_chunk=64)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out[0]).all()
+    assert float(torch.ones(1, device=cuda).add(1)) == 2.0
