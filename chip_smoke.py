@@ -35,13 +35,37 @@ Phases, each printing one JSON line:
      chunks), cut in depth to 2 update iterations; the GNN kernels' launch
      counters must be > 0 for this run, with 15 GEMMs a forward; the fused
      rollout against the module rollout on 16 samples.
-  6. profile: `torch.profiler` breakdown of a 5k rasterize fwd+bwd, of one
-     tracking iteration and of one MPPI iteration: device time by kernel,
-     the compositor kernels' device ms, device idle share.
-  7. cli: `python -m gsdx_torch.apps.track` on a small synthetic episode,
-     and `python -m gsdx_torch.apps.plan --env fake` on the committed
-     rope checkpoint.
+  6. learn: in a temporary copy of the committed tracked rope episode
+     (benchmarks/out/pipeline), `preprocess_episode` with its settings
+     (dist 0.005, n_his 3, n_future 3, 1000 particles): the frame pairs must
+     equal the committed ones gsdx wrote, and the downsampled trajectory's
+     difference from the committed one is reported; then 20 train steps of
+     configs/rope.yaml at full width (nf 512, batch 16, n_future 5, max_nobj
+     100, max_nR 500) from a seeded init: finite losses whose last 5 average
+     below the first 5; batch assembly and train step ms (CUDA events),
+     samples/s.
+  7. predict: `collect_scene_data` on the committed 16-frame episode with
+     the trained rope checkpoint, then 4 cameras x 16 frames re-rendered at
+     1280x720 under inference mode; the compositor forward's launch counter
+     must be > 0 for this run. Kernel #1 against its plain version on camera
+     0's tile inputs of a frame of the push (n_accum 4); one rollout step on
+     the card against the same step on the CPU (1e-4 m), the whole
+     trajectory's difference reported; rank-deficient Kabsch bones; the
+     PSNR of every re-rendered frame against a render of the tracked frame,
+     Chamfer distances against the tracked trajectory; rollout step ms,
+     frame ms and frames/s.
+  8. profile: `torch.profiler` breakdown of a 5k rasterize fwd+bwd, of one
+     tracking iteration, of one MPPI iteration, of one rope-width train
+     iteration and of one predict step (a rollout step and 4 renders):
+     device time by kernel, the compositor kernels' device ms, device idle
+     share.
+  9. cli: `python -m gsdx_torch.apps.track` on a small synthetic episode,
+     `python -m gsdx_torch.apps.plan --env fake` on the committed rope
+     checkpoint, and `apps.preprocess`, `apps.train` (1 epoch of 5 train and
+     2 valid iterations) and `apps.predict` (4 steps, 1 camera) on a
+     temporary two-episode tree from a temporary working directory.
 
+Then each phase's seconds; the run fails if it wrote into the checkout.
 The line before the last holds the kernel table; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero with no result.
 """
@@ -362,6 +386,35 @@ def phase_build() -> dict:
                         "gnn_linear", "gnn_gemm", "gnn_edge_first", "gnn_message"]}
 
 
+def check_forward(tf, counts, geo: dict, presort: bool, what: str):
+    """The forward kernel against its plain version on the same inputs:
+    `nproc` equal on every tile, the outputs within REL_TOL, rank and
+    sorted features equal. Returns (kernel outputs, max |err|, the launch
+    read back from the library)."""
+    from gsdx_torch.kernels import composite as C
+
+    kw = dict(geo, presort=presort)
+    out_k = C.composite_fwd(tf, counts, **kw)
+    launch = C.last_launch()  # as the C side launched it
+    with torch.no_grad():
+        out_p = C.composite_tiles_torch(tf, counts, **kw)
+    torch.cuda.synchronize()
+    flips = int((out_k[2] != out_p[2]).sum())
+    if flips:
+        raise AssertionError(f"nproc differs on {flips} tiles ({what})")
+    err = 0.0
+    for a, b in zip(out_k[:2], out_p[:2]):
+        torch.testing.assert_close(a, b, rtol=REL_TOL, atol=REL_TOL)
+        err = max(err, float((a - b).abs().max()))
+    if presort:
+        if not torch.equal(out_k[3], out_p[3]) or not torch.equal(out_k[4], out_p[4]):
+            raise AssertionError("presort rank / sorted features differ")
+    if launch["cluster"] < 2 or launch["blocks"] != tf.shape[0] * launch["cluster"]:
+        raise AssertionError(f"forward launched {launch}: expected clusters of >= 2 "
+                             f"blocks, {tf.shape[0]} of them ({what})")
+    return out_k, err, launch
+
+
 def compare_kernels(n: int, presort: bool, clk_mhz: float,
                     saturating: bool = False) -> list[dict]:
     """Kernel vs plain PyTorch for the forward and the backward."""
@@ -372,22 +425,8 @@ def compare_kernels(n: int, presort: bool, clk_mhz: float,
     P = geo["tile_h"] * geo["tile_w"]
     nacc = geo["n_accum"]
     kw = dict(geo, presort=presort)
-    out_k = C.composite_fwd(tf, counts, **kw)
-    launch_f = C.last_launch()  # as the C side launched it
-    with torch.no_grad():
-        out_p = C.composite_tiles_torch(tf, counts, **kw)
-    torch.cuda.synchronize()
-    nproc_k, nproc_p = out_k[2], out_p[2]
-    flips = int((nproc_k != nproc_p).sum())
-    if flips:
-        raise AssertionError(f"nproc differs on {flips} tiles (n={n})")
-    err_f = 0.0
-    for a, b in zip(out_k[:2], out_p[:2]):
-        torch.testing.assert_close(a, b, rtol=REL_TOL, atol=REL_TOL)
-        err_f = max(err_f, float((a - b).abs().max()))
-    if presort:
-        if not torch.equal(out_k[3], out_p[3]) or not torch.equal(out_k[4], out_p[4]):
-            raise AssertionError("presort rank / sorted features differ")
+    out_k, err_f, launch_f = check_forward(tf, counts, geo, presort, f"n={n}")
+    nproc_k, flips = out_k[2], 0
 
     g = torch.Generator(device="cuda").manual_seed(1)
     g_acc = torch.randn(T, nacc, P, device="cuda", generator=g)
@@ -441,10 +480,9 @@ def compare_kernels(n: int, presort: bool, clk_mhz: float,
     stopped = int((nproc_k.long() * geo["sub_chunk"] < counts.long()).sum())
     if saturating and not stopped:
         raise AssertionError("the saturating scene never stopped early")
-    for what, launch in (("forward", launch_f), ("backward", launch_b)):
-        if launch["cluster"] < 2 or launch["blocks"] != T * launch["cluster"]:
-            raise AssertionError(f"{what} launched {launch}: expected clusters of "
-                                 f">= 2 blocks, {T} of them")
+    if launch_b["cluster"] < 2 or launch_b["blocks"] != T * launch_b["cluster"]:
+        raise AssertionError(f"backward launched {launch_b}: expected clusters of "
+                             f">= 2 blocks, {T} of them")
     common = {"n": n, "saturating": saturating, "T": T, "K": K, "P": P,
               "sub": geo["sub_chunk"], "tile_h": geo["tile_h"],
               "n_accum": nacc, "nonempty_tiles": int((counts > 0).sum()),
@@ -990,10 +1028,12 @@ def tracking_iteration():
     return track_iter
 
 
-def phase_profile() -> list[dict]:
+def phase_profile(train_iteration, predict_step) -> list[dict]:
     """Device breakdown of a 5k-Gaussian 720p rasterize fwd+bwd, of one t=0
-    tracking iteration of the slice's scene (densification off) and of one
-    MPPI iteration of the plan phase."""
+    tracking iteration of the slice's scene (densification off), of one
+    MPPI iteration of the plan phase, of one rope-width train iteration
+    (batch assembly and step) and of one predict step (a rollout step and
+    4 renders at 720p)."""
     from gsdx_torch.render.rasterize import RasterizeConfig, rasterize
 
     cam = camera()
@@ -1015,6 +1055,11 @@ def phase_profile() -> list[dict]:
     rows.append(device_profile(
         lambda: planner.trajectory_optimization(gen, state, init),
         "MPPI iteration, rope, 1000 samples, 100 particles, 8 chunks", steps=2))
+    rows.append(device_profile(
+        train_iteration, "train iteration, rope width, batch 16, n_future 5 "
+        "(batch assembly and step)"))
+    rows.append(device_profile(
+        predict_step, "predict step: a rollout step and 4 renders at 720p"))
     for r in rows:
         emit(r)
     return rows
@@ -1116,6 +1161,401 @@ def phase_plan_cli() -> dict:
     return row
 
 
+PIPELINE = os.path.join(REPO, "benchmarks/out/pipeline")
+ROPE_YAML = os.path.join(REPO, "configs/rope.yaml")
+LEARN_STEPS = 20
+
+
+def episode_copy(tmp: str) -> tuple[str, str]:
+    """The committed tracked rope episode copied under ``tmp`` (the path
+    writes beside it): (raw data dir, tracking output dir)."""
+    data, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+    shutil.copytree(os.path.join(PIPELINE, "data"), data)
+    shutil.copytree(os.path.join(PIPELINE, "ckpts"), out)
+    return data, out
+
+
+def events_ms(fn):
+    """(fn's result, its ms between two CUDA events)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def phase_learn(card: str):
+    """Preprocess the committed episode (its own settings: dist 0.005,
+    n_his 3, n_future 3, 1000 particles), then take LEARN_STEPS train steps
+    of configs/rope.yaml at full width from a seeded init. Returns (row, a
+    function of no arguments running one train iteration)."""
+    from gsdx_torch.dynamics.train import init_params, make_train_step
+    from gsdx_torch.graph.dataset import EpisodeStore, GraphSampler
+    from gsdx_torch.io.config import load_config
+    from gsdx_torch.io.episodes import eef_world_positions, load_metadata
+    from gsdx_torch.io.preprocess import preprocess_episode
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data, out = episode_copy(tmp)
+        prep = os.path.join(tmp, "prep")
+        t0 = time.perf_counter()
+        rows = preprocess_episode(data, out, prep, dist_thresh=0.005, n_his=3, n_future=3,
+                                  episode_idx=0, n_downsample=1000, device="cuda")
+        prep_s = time.perf_counter() - t0
+        committed = np.loadtxt(os.path.join(PIPELINE, "prep/frame_pairs/0.txt")).astype(np.int64)
+        written = np.loadtxt(os.path.join(prep, "frame_pairs/0.txt")).astype(np.int64)
+        if not (np.array_equal(rows, committed) and np.array_equal(written, committed)):
+            raise AssertionError("the frame pairs differ from the committed "
+                                 "prep/frame_pairs/0.txt")
+        down = np.load(os.path.join(out, "param_downsampled.npy"))
+        # the trajectories keep the FPS order: the first differing column is
+        # the first differing pick
+        per_pick = np.abs(down - np.load(TRAJ)).max(axis=(0, 2))
+        differ = np.nonzero(per_pick > 0)[0]
+        eef = eef_world_positions(data, load_metadata(os.path.join(out, "metadata.json")))
+
+    train_cfg, model_cfg, data_cfg = load_config(ROPE_YAML)
+    pairs = written[written.max(1) < len(down)]
+    pairs = np.concatenate([np.zeros((len(pairs), 1), np.int64), pairs], 1)
+    sampler = GraphSampler(EpisodeStore.from_numpy([down], [eef], [pairs], device="cuda"),
+                           data_cfg, "train")
+    model = init_params(model_cfg, 0, "cuda")
+    train_step, _, _ = make_train_step(model, train_cfg)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    losses, ms_batch, ms_step = [], [], []
+    for _ in range(LEARN_STEPS):
+        batch, mb = events_ms(lambda: sampler.sample(g, train_cfg.batch_size))
+        (loss, _), ms = events_ms(lambda: train_step(batch))
+        losses.append(float(loss))
+        ms_batch.append(mb)
+        ms_step.append(ms)
+    B = train_cfg.batch_size
+    row = {"phase": "learn", "card": card, "preprocess_s": prep_s,
+           "frame_pairs_equal_committed": True, "pairs": int(len(rows)),
+           "downsampled_max_abs_diff": float(per_pick.max()),
+           "first_differing_fps_pick": int(differ[0]) if len(differ) else None,
+           "config": "configs/rope.yaml", "nf": model_cfg.nf_effect, "batch_size": B,
+           "n_his": train_cfg.n_his, "n_future": train_cfg.n_future,
+           "max_nobj": data_cfg.max_nobj, "max_nR": data_cfg.max_nR,
+           "particles": int(down.shape[1]), "steps": LEARN_STEPS,
+           "batch_ms": float(np.median(ms_batch)), "train_step_ms": float(np.median(ms_step)),
+           "samples_per_s": B / (float(np.median(ms_batch)) + float(np.median(ms_step))) * 1e3,
+           "first_step_ms": ms_batch[0] + ms_step[0], "losses": losses,
+           "seconds": time.perf_counter() - t_phase}
+    emit(row)
+    if not np.isfinite(losses).all():
+        raise AssertionError("non-finite training loss")
+    # The first Adam steps from a random init spike the loss, which inflates
+    # the mean of the first 5: the last 5 must also sit below step 0's loss.
+    if not np.mean(losses[-5:]) < min(np.mean(losses[:5]), losses[0]):
+        raise AssertionError(f"the loss did not fall: {losses}")
+
+    def train_iteration():
+        train_step(sampler.sample(g, B))
+
+    return row, train_iteration
+
+
+def record_calls(module, name: str):
+    """Replace ``module.name`` by a wrapper that records each call's
+    arguments; returns (the list of calls, a function restoring it)."""
+    orig, calls = getattr(module, name), []
+
+    def wrapper(*args, **kw):
+        calls.append((args, kw))
+        return orig(*args, **kw)
+
+    setattr(module, name, wrapper)
+    return calls, lambda: setattr(module, name, orig)
+
+
+def rank_deficient(calls) -> tuple[int, int]:
+    """(bones whose Kabsch covariance has sigma_2 / sigma_1 < 1e-3, bones
+    with a neighbour) over the recorded `bone_rotations` calls."""
+    from gsdx_torch.rollout.skinning import bone_covariance
+
+    low = total = 0
+    for args, kw in calls:
+        F, n_adj = bone_covariance(*args, **kw)
+        s = torch.linalg.svdvals(F[n_adj > 0])
+        low += int((s[:, 1] < 1e-3 * s[:, 0]).sum())
+        total += int(s.shape[0])
+    return low, total
+
+
+def compare_fwd_at(tf, counts, geo: dict, clk_mhz: float) -> dict:
+    """Kernel #1's forward against its plain version on one frame's tile
+    inputs, timed and bounded as the `kernels` phase does."""
+    from gsdx_torch.kernels import composite as C
+
+    out_k, err, launch = check_forward(tf, counts, geo, False, "predict frame")
+    nproc = out_k[2]
+    pairs = pair_counts(tf, counts, nproc, geo)
+    if pairs["visible_outside_box"]:
+        raise AssertionError("a visible pair lies outside its alpha_cut_box")
+    nacc, visible = geo["n_accum"], pairs["visible"]
+    bytes_f = needed_bytes(counts, nproc, geo, tf.shape[2], False)[0]
+    bound = bound_ms(bytes_f, (FLOPS_ALL + FWD_FLOPS_VIS(nacc)) * visible, 3 * visible,
+                     clk_mhz)
+    return {"name": "composite_fwd", "T": tf.shape[0], "K": tf.shape[2],
+            "tile_h": geo["tile_h"], "sub": geo["sub_chunk"], "n_accum": nacc,
+            "nonempty_tiles": int((counts > 0).sum()), "nproc_flips": 0,
+            "early_stopped_tiles": int((nproc.long() * geo["sub_chunk"] < counts.long()).sum()),
+            "pairs_processed": pairs["processed"], "pairs_visible": visible,
+            "kept_share": pairs["patch_kept"] / max(1, pairs["patch_pairs"]),
+            "max_abs_err": err, "launch": launch,
+            "ms": cuda_ms(lambda: C.composite_fwd(tf, counts, **geo)),
+            "device_ms": kernel_device_ms(lambda: C.composite_fwd(tf, counts, **geo),
+                                          r"\bfwd_kernel<"),
+            "plain_ms": cuda_ms(lambda: C.composite_tiles_torch(tf, counts, **geo), reps=3,
+                                warmup=1),
+            "bound_ms": bound[0], "bound_by": bound[1], "bound_bytes": bytes_f}
+
+
+def phase_predict(card: str, clk_mhz: float):
+    """`collect_scene_data` on the committed 16-frame episode with the
+    trained rope checkpoint, then all 4 cameras re-rendered at 1280x720 (64
+    frames); kernel #1 at a predict frame's shape; one rollout step on the
+    card against the same step on the CPU. Returns (row, kernel row, a
+    function of no arguments running one predict step: a rollout step and
+    4 renders)."""
+    import copy
+    import importlib
+
+    from gsdx_torch.apps.predict import collect_scene_data, tracked_gaussians
+    from gsdx_torch.core.pointcloud import iterative_statistical_outliers
+    from gsdx_torch.dynamics.losses import chamfer_distance
+    from gsdx_torch.io.config import load_config
+    from gsdx_torch.io.episodes import eef_world_positions, load_metadata
+    from gsdx_torch.kernels import composite as C
+    from gsdx_torch.kernels.fps import farthest_point_sampling
+    from gsdx_torch.render.renderer import Renderer
+    from gsdx_torch.rollout import skinning
+    from gsdx_torch.rollout.dynamics_module import DynamicsModule, RolloutConfig
+    from gsdx_torch.track.losses import calc_psnr
+
+    t_phase = time.perf_counter()
+    train_cfg, _, data_cfg = load_config(ROPE_YAML)
+    model = rope_model()
+    tmp = tempfile.mkdtemp()
+    try:
+        data, out = episode_copy(tmp)
+        params_path = os.path.join(out, "params.npz")
+        meta = load_metadata(os.path.join(out, "metadata.json"))
+        eef = eef_world_positions(data, meta)
+        # the first step the end effector moves (the rollout's skip rule)
+        i1 = next(i for i in range(1, len(eef))
+                  if np.linalg.norm(eef[i] - eef[0]) >= train_cfg.dist_thresh)
+        renderer = Renderer(width=meta["w"], height=meta["h"], device="cuda")
+        w2c = np.asarray(meta["w2c"][0], np.float32)
+        k = np.asarray(meta["k"][0], np.float32)
+
+        # the path, counted: rollout, then 4 cameras x 16 frames
+        calls, restore = record_calls(skinning, "bone_rotations")
+        torch.cuda.synchronize()
+        C.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            scene, vis, _ = collect_scene_data(params_path, data, out, model, train_cfg,
+                                               data_cfg, device="cuda")
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        rollout_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            ims = [[renderer.render(w2c[c], k[c], sd)[0] for sd in scene] for c in range(4)]
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - t0
+        launches = dict(C.LAUNCHES)
+        if launches["fwd"] <= 0:
+            raise AssertionError(f"the compositor forward never launched in predict: {launches}")
+        low_traj, bones_traj = rank_deficient(calls)
+
+        with torch.inference_mode():
+            psnr = [[float(calc_psnr(ims[c][t].clamp(0, 1), renderer.render(
+                w2c[c], k[c], tracked_gaussians(params_path, t))[0].clamp(0, 1)))
+                for t in range(len(scene))] for c in range(4)]
+        del ims
+        # the bones (slots the radius FPS kept) against the tracked
+        # downsampled trajectory, from the first step on; and the skinned
+        # Gaussians against the tracked ones
+        tracked = torch.as_tensor(np.load(TRAJ), device="cuda")
+        chamfer, chamfer_gs = {}, {}
+        for t in range(i1, len(scene)):
+            kp = torch.as_tensor(vis[t]["kp"], device="cuda")
+            kp = kp[kp.abs().sum(1) > 0]
+            chamfer[t] = float(chamfer_distance(kp[None], tracked[t][None]))
+            gs = torch.as_tensor(scene[t]["means3D"], device="cuda")
+            ref = torch.as_tensor(tracked_gaussians(params_path, t, 0.1)["means3D"],
+                                  device="cuda")
+            chamfer_gs[t] = float(chamfer_distance(gs[None], ref[None]))
+
+        # the whole rollout on the CPU, and one step on both devices from the
+        # same inputs (the first step)
+        model_cpu = copy.deepcopy(model).cpu()
+        scene_cpu, _, _ = collect_scene_data(params_path, data, out, model_cpu, train_cfg,
+                                             data_cfg, device="cpu")
+        traj_err = max(float(np.abs(a["means3D"] - b["means3D"]).max())
+                       for a, b in zip(scene, scene_cpu))
+        cfg = RolloutConfig(n_his=train_cfg.n_his, dist_thresh=train_cfg.dist_thresh,
+                            max_nobj=data_cfg.max_nobj,
+                            fps_radius=sum(data_cfg.fps_radius_range) / 2,
+                            adj_thresh=sum(data_cfg.adj_radius_range) / 2, topk=data_cfg.topk,
+                            connect_all=data_cfg.connect_all, max_nR=data_cfg.max_nR)
+        g0 = tracked_gaussians(params_path, 0, min_opacity=0.1)
+        xyz = torch.as_tensor(g0["means3D"], device="cuda")
+        quat = torch.as_tensor(g0["rotations"], device="cuda")
+        inl = torch.as_tensor(iterative_statistical_outliers(xyz, 50), device="cuda")
+        proxy = xyz[inl][farthest_point_sampling(xyz[inl], cfg.n_fps_proxy)]
+        step_in = (proxy[None].repeat(cfg.n_his, 1, 1),
+                   torch.as_tensor(eef[0], device="cuda")[None].repeat(cfg.n_his, 1, 1),
+                   torch.as_tensor(eef[i1] - eef[0], device="cuda"), xyz, quat)
+        dm = DynamicsModule(model, cfg)
+        calls, restore = record_calls(skinning, "bone_rotations")
+        try:
+            step_gpu = dm.step(*step_in)
+            step_cpu = DynamicsModule(model_cpu, cfg).step(*[a.cpu() for a in step_in])
+        finally:
+            restore()
+        low_step = rank_deficient(calls[:1])
+        step_err = float((step_gpu[0].cpu() - step_cpu[0]).abs().max())
+        step_ms = cuda_ms(lambda: dm.step(*step_in), reps=10)
+
+        # kernel #1 on the tile inputs of camera 0 at a frame of the push
+        t_k = min(len(scene) - 1, i1 + 4)
+        R = importlib.import_module("gsdx_torch.render.rasterize")
+        fwd_calls, restore = record_calls(R, "composite_fwd")
+        try:
+            with torch.inference_mode():
+                renderer.render(w2c[0], k[0], scene[t_k])
+        finally:
+            restore()
+        (tf, counts), kw = fwd_calls[0]
+        geo = {key: kw[key] for key in ("tiles_x", "tile_h", "tile_w", "n_accum", "sub_chunk")}
+        kernel = dict(compare_fwd_at(tf.clone(), counts.clone(), geo, clk_mhz), frame=t_k,
+                      camera=0, gaussians=int(len(g0["means3D"])))
+        with torch.inference_mode():
+            frame_ms = cuda_ms(lambda: renderer.render(w2c[0], k[0], scene[t_k]), reps=10)
+    finally:
+        shutil.rmtree(tmp)
+    n_frames = 4 * len(scene)
+    row = {"phase": "predict", "card": card, "frames": n_frames, "cameras": 4,
+           "height": meta["h"], "width": meta["w"], "gaussians": int(len(g0["means3D"])),
+           "launches": launches, "rollout_s": rollout_s, "render_s": render_s,
+           "rollout_step_ms": step_ms, "render_frame_ms": frame_ms,
+           "render_frames_per_s": n_frames / render_s,
+           "frames_per_s": n_frames / (rollout_s + render_s),
+           "first_moving_step": int(i1), "step_card_vs_cpu_max_abs_m": step_err,
+           "trajectory_card_vs_cpu_max_abs_m": traj_err,
+           "rank_deficient_bones_step": low_step[0], "bones_step": low_step[1],
+           "rank_deficient_bones_rollout": low_traj, "bones_rollout": bones_traj,
+           "psnr_vs_tracked": psnr, "bone_chamfer_vs_tracked": chamfer,
+           "gaussian_chamfer_vs_tracked": chamfer_gs,
+           "seconds": time.perf_counter() - t_phase}
+    emit(row)
+    emit(dict(kernel, phase="predict_kernel"))
+    if not all(np.isfinite(s["means3D"]).all() for s in scene):
+        raise AssertionError("non-finite rollout")
+    if not step_err <= 1e-4:
+        raise AssertionError(f"rollout step card vs CPU: {step_err} m > 1e-4")
+
+    def predict_step():
+        dm.step(*step_in)
+        with torch.inference_mode():
+            for c in range(4):
+                renderer.render(w2c[c], k[c], scene[t_k])
+
+    return row, kernel, predict_step
+
+
+def rope_cli_yaml(text: str) -> str:
+    """configs/rope.yaml cut in depth for the CLIs: 1 epoch of 5 train and
+    2 valid iterations, the dataset under ./d3dg."""
+    for key, value in (("n_epochs", "1"), ("train", "5"), ("valid", "2"),
+                       ("base_dir", '"d3dg"')):
+        text, n = re.subn(rf"^(\s*{key}:).*$", rf"\1 {value}", text, count=1, flags=re.M)
+        if n != 1:
+            raise AssertionError(f"configs/rope.yaml has no {key}")
+    return text
+
+
+def phase_learn_cli() -> dict:
+    """`apps.preprocess`, `apps.train` and `apps.predict` (4 steps, 1
+    camera) on a two-episode tree of the committed episode, from a
+    temporary working directory."""
+    from gsdx_torch.io.config import parse_yaml
+
+    with open(ROPE_YAML) as f:
+        text = rope_cli_yaml(f.read())
+    name = parse_yaml(text)["dataset_config"]["datasets"][0]["name"]
+    out_dir = parse_yaml(text)["train_config"]["out_dir"]
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "rope.yaml"), "w") as f:
+            f.write(text)
+        for idx in (0, 1):
+            ep = f"episode_{idx:02d}"
+            shutil.copytree(os.path.join(PIPELINE, "data"),
+                            os.path.join(tmp, "d3dg", "data", name, ep))
+            shutil.copytree(os.path.join(PIPELINE, "ckpts"),
+                            os.path.join(tmp, "d3dg", "ckpts", f"exp_{name}", ep, name, ep))
+        ep0 = os.path.join(tmp, "d3dg", "ckpts", f"exp_{name}", "episode_00", name,
+                           "episode_00")
+        for app, extra in (
+                ("preprocess", []), ("train", []),
+                ("predict", ["--episode", os.path.join(tmp, "d3dg", "data", name, "episode_00"),
+                             "--params", ep0, "--out", "out/predict", "--max_steps", "4",
+                             "--cameras", "1"])):
+            t0 = time.perf_counter()
+            subprocess.run([sys.executable, "-m", f"gsdx_torch.apps.{app}", "--config",
+                            "rope.yaml", "--device", "cuda", *extra],
+                           check=True, cwd=tmp, env=env)
+            seconds[app] = time.perf_counter() - t0
+        prep = [os.path.join(tmp, "d3dg", "preprocessed", f"exp_{name}", f"episode_{i:02d}",
+                             "frame_pairs", f"{i}.txt") for i in (0, 1)]
+        ckpts = sorted(os.listdir(os.path.join(tmp, out_dir, "checkpoints")))
+        pngs = sorted(os.listdir(os.path.join(tmp, "out", "predict", "camera_0")))
+        if not all(os.path.exists(p) for p in prep):
+            raise AssertionError("the preprocess CLI left no frame pairs")
+        if ckpts != ["latest.ckpt", "latest_optim.ckpt", "model_1.ckpt"]:
+            raise AssertionError(f"the train CLI left {ckpts}")
+        if pngs != [f"frame_{t:04d}.png" for t in range(4)]:
+            raise AssertionError(f"the predict CLI left {pngs}")
+    row = {"phase": "cli_learn", "seconds": seconds, "checkpoints": ckpts, "frames": pngs}
+    emit(row)
+    return row
+
+
+def tree_state() -> dict:
+    """(size, mtime) of every file of the checkout that git would see: all
+    but `.git` and what `.gitignore` lists (the kernel build among it)."""
+    import fnmatch
+
+    with open(os.path.join(REPO, ".gitignore")) as f:
+        ignored = [ln.strip().strip("/") for ln in f if ln.strip() and not ln.startswith("#")]
+
+    def skip(rel: str) -> bool:
+        return any(fnmatch.fnmatch(rel, pat) or fnmatch.fnmatch(os.path.basename(rel), pat)
+                   for pat in ignored)
+
+    out = {}
+    for root, dirs, files in os.walk(REPO):
+        rel_root = os.path.relpath(root, REPO)
+        dirs[:] = [d for d in dirs
+                   if d != ".git" and not skip(os.path.normpath(os.path.join(rel_root, d)))]
+        for f in files:
+            rel = os.path.normpath(os.path.join(rel_root, f))
+            if not skip(rel):
+                st = os.stat(os.path.join(REPO, rel))
+                out[rel] = (st.st_size, st.st_mtime_ns)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1128,15 +1568,34 @@ def main() -> int:
     info = card_info()
     emit({"phase": "card", "torch": torch.__version__, "cuda": torch.version.cuda,
           **info})
-    emit(phase_build())
-    rows = phase_kernels(info["max_sm_mhz"])
-    gnn_rows = phase_gnn_kernels()
-    phase_rasterize(info["nvidia_smi"])
-    slice_row = phase_slice(info["nvidia_smi"])
-    plan_row = phase_plan(info["nvidia_smi"])
-    phase_profile()
-    phase_cli()
-    phase_plan_cli()
+    before = tree_state()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    card = info["nvidia_smi"]
+    emit(timed("build", phase_build))
+    rows = timed("kernels", phase_kernels, info["max_sm_mhz"])
+    gnn_rows = timed("gnn_kernels", phase_gnn_kernels)
+    timed("rasterize", phase_rasterize, card)
+    slice_row = timed("slice", phase_slice, card)
+    plan_row = timed("plan", phase_plan, card)
+    _, train_iteration = timed("learn", phase_learn, card)
+    predict_row, predict_kernel, predict_step = timed("predict", phase_predict, card,
+                                                      info["max_sm_mhz"])
+    timed("profile", phase_profile, train_iteration, predict_step)
+    timed("cli", phase_cli)
+    timed("cli_plan", phase_plan_cli)
+    timed("cli_learn", phase_learn_cli)
+    emit({"phase": "seconds", **seconds})
+    after = tree_state()
+    changed = sorted(p for p in set(before) | set(after) if before.get(p) != after.get(p))
+    if changed:
+        raise AssertionError(f"the run wrote into the checkout: {changed[:10]}")
 
     table = []
     for r in rows:
@@ -1152,6 +1611,12 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
+        if variant == "fwd":  # the predict path's launches and shape beside
+            table[-1]["launches_predict"] = predict_row["launches"]["fwd"]
+            table[-1]["predict_shape"] = {
+                key: predict_kernel[key] for key in (
+                    "T", "K", "tile_h", "sub", "n_accum", "max_abs_err", "ms",
+                    "device_ms", "plain_ms", "bound_ms", "bound_by")}
     rope, gemm = gnn_rows[0], gnn_rows[1]  # the plan path's shapes
     table.append({
         "name": "gnn_forward", "route": "cuda",

@@ -61,10 +61,7 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     from gsdx_torch.core.device import require_device
-    from gsdx_torch.dynamics.model import (DynamicsPredictor, flax_params,
-                                           load_flax_params)
-    from gsdx_torch.io.checkpoint import load_checkpoint
-    from gsdx_torch.io.config import load_config
+    from gsdx_torch.io.checkpoint import load_trained_model
     from gsdx_torch.plan.cost import running_cost
     from gsdx_torch.plan.dynamics_rollout import RolloutSpec, make_batched_rollout
     from gsdx_torch.plan.planner import MPPIConfig, Planner
@@ -77,12 +74,7 @@ def main(argv=None):
         raise NotImplementedError(
             "--env real needs the cameras and robot of realworld/, which are "
             "not ported yet; use --env fake")
-    train_cfg, model_cfg, data_cfg = load_config(args.config)
-    model = DynamicsPredictor(model_cfg)
-    ckpt = "latest.ckpt" if args.epoch == "latest" else f"model_{args.epoch}.ckpt"
-    tree = load_checkpoint(os.path.join(train_cfg.out_dir, "checkpoints", ckpt),
-                           target=flax_params(model))
-    model = load_flax_params(model, tree).to(device).eval()
+    train_cfg, data_cfg, model = load_trained_model(args.config, args.epoch, device)
 
     rng = np.random.default_rng(args.seed)
     pts = rng.normal(scale=0.03, size=(400, 3)).astype(np.float32)

@@ -225,7 +225,12 @@ def flax_params(model: DynamicsPredictor, as_numpy: bool = True) -> dict:
     """The module's weights as a flax-layout tree {"params": ...}, numpy
     arrays by default (what `io.checkpoint.save_checkpoint` writes), or
     detached tensors on the module's device."""
-    sd = model.state_dict()
+    return flax_tree(model.state_dict(), as_numpy)
+
+
+def flax_tree(sd: dict, as_numpy: bool = True) -> dict:
+    """Tensors keyed by the module's state-dict names (its weights, or
+    per-weight optimizer moments) as a flax-layout tree {"params": ...}."""
 
     def out(x):
         x = x.detach()

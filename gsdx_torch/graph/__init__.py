@@ -1,1 +1,1 @@
-"""Particle graphs: radius-graph edges and (later) the graph dataset."""
+"""Particle graphs: radius-graph edges and the graph dataset."""

@@ -263,3 +263,62 @@ def load_checkpoint(path: str, target=None):
         state = _lift_dense0(state, tgt)
         _check_structure(state, tgt)
     return state
+
+
+def load_trained_model(config: str, epoch: str, device):
+    """(train_cfg, data_cfg, model): the configs of the YAML ``config`` and
+    its trained `DynamicsPredictor` from
+    `<train_config.out_dir>/checkpoints/{latest,model_<epoch>}.ckpt`
+    (relative to the working directory), on ``device`` in eval mode."""
+    from gsdx_torch.dynamics.model import DynamicsPredictor, flax_params, load_flax_params
+    from gsdx_torch.io.config import load_config
+
+    train_cfg, model_cfg, data_cfg = load_config(config)
+    model = DynamicsPredictor(model_cfg)
+    name = "latest.ckpt" if epoch == "latest" else f"model_{epoch}.ckpt"
+    tree = load_checkpoint(os.path.join(train_cfg.out_dir, "checkpoints", name),
+                           target=flax_params(model))
+    return train_cfg, data_cfg, load_flax_params(model, tree).to(device).eval()
+
+
+# --------------------------------------------------------------------------
+# optimizer state
+# --------------------------------------------------------------------------
+
+
+def adam_state_tree(model, optimizer: "torch.optim.Adam") -> dict:
+    """The Adam state of ``model``'s weights in optax's layout, as gsdx's
+    trainer writes `latest_optim.ckpt`: {"0": {"count": int32 scalar, "mu":
+    <flax param tree>, "nu": <flax param tree>}, "1": {}} (optax's adam is a
+    chain of scale_by_adam and a learning-rate scale with no state). The
+    moments map to the flax tree as the weights do: torch's exp_avg is mu,
+    exp_avg_sq is nu, and the step count is optax's count."""
+    import torch
+
+    from gsdx_torch.dynamics.model import flax_tree
+
+    mu, nu, count = {}, {}, 0
+    for name, p in model.named_parameters():
+        st = optimizer.state.get(p, {})
+        mu[name] = st.get("exp_avg", torch.zeros_like(p))
+        nu[name] = st.get("exp_avg_sq", torch.zeros_like(p))
+        count = int(st["step"]) if "step" in st else count
+    return {"0": {"count": np.asarray(count, np.int32), "mu": flax_tree(mu),
+                  "nu": flax_tree(nu)}, "1": {}}
+
+
+def load_adam_state(model, optimizer: "torch.optim.Adam", tree: dict) -> None:
+    """Set ``optimizer``'s state for ``model``'s weights from an optax-layout
+    tree (`adam_state_tree`; what `load_checkpoint` reads from a
+    `latest_optim.ckpt` of either package)."""
+    import torch
+
+    from gsdx_torch.dynamics.model import params_from_flax
+
+    state = tree["0"]
+    mu, nu = params_from_flax(state["mu"]), params_from_flax(state["nu"])
+    step = float(np.asarray(state["count"]))
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {"step": torch.tensor(step),
+                              "exp_avg": mu[name].to(p.device).clone(),
+                              "exp_avg_sq": nu[name].to(p.device).clone()}

@@ -1,7 +1,9 @@
 """Episode file IO (the port's own copy of what it needs from
 `gsdx/io/episodes.py`, same on-disk format).
 
-  episode dir: camera_{i}/color_{n}.jpg, camera_{i}/seg/seg_{n}.png
+  episode dir: camera_{i}/color_{n}.jpg, camera_{i}/seg/seg_{n}.png,
+               actions.txt (one JSON per frame: joint_angles, pose in mm
+               and degrees), calibration_handeye_result.pkl
   metadata: train_meta.json / metadata.json {w, h, k, w2c, fn, cam_id}
   tracking output: params.npz, per-timestep snapshots stacked over time
 """
@@ -10,9 +12,22 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 from typing import Sequence
 
 import numpy as np
+
+
+def rpy_to_rotation_matrix(roll, pitch, yaw) -> np.ndarray:
+    """Degrees -> rotation matrix Rz @ Ry @ Rx (float64)."""
+    roll, pitch, yaw = (np.deg2rad(a) for a in (roll, pitch, yaw))
+    cr, sr = np.cos(roll), np.sin(roll)
+    cp, sp = np.cos(pitch), np.sin(pitch)
+    cy, sy = np.cos(yaw), np.sin(yaw)
+    rx = np.array([[1, 0, 0], [0, cr, -sr], [0, sr, cr]])
+    ry = np.array([[cp, 0, sp], [0, 1, 0], [-sp, 0, cp]])
+    rz = np.array([[cy, -sy, 0], [sy, cy, 0], [0, 0, 1]])
+    return rz @ ry @ rx
 
 
 def save_params(output_params: Sequence[dict], path: str) -> None:
@@ -30,10 +45,68 @@ def save_params(output_params: Sequence[dict], path: str) -> None:
     np.savez(path, **to_save)
 
 
+def load_params(path: str) -> dict:
+    return dict(np.load(path))
+
+
 def load_metadata(path: str) -> dict:
     """metadata.json / train_meta.json with fields w, h, k, w2c, fn, cam_id."""
     with open(path) as f:
         return json.load(f)
+
+
+def load_actions(data_dir: str) -> list:
+    """The lines of actions.txt (one JSON object per recorded frame)."""
+    with open(os.path.join(data_dir, "actions.txt")) as f:
+        return f.read().rstrip("\n").split("\n")
+
+
+def load_calibration(data_dir: str) -> dict:
+    """The hand-eye calibration {R_base2world (3, 3), t_base2world (3,)},
+    a pickle written by the recording rig."""
+    with open(os.path.join(data_dir, "calibration_handeye_result.pkl"), "rb") as f:
+        return pickle.load(f)
+
+
+def frame_indices_from_metadata(meta: dict) -> np.ndarray:
+    """Frame numbers parsed from camera 0's file names (`color_{n}.jpg`)."""
+    fn = np.array(meta["fn"])
+    names = fn[:, 0] if fn.ndim > 1 else fn
+    return np.array([int(str(n).split("/")[-1].split("_")[1].split(".")[0])
+                     for n in names])
+
+
+def eef_world_positions(data_dir: str, meta: dict,
+                        gripper_z: float = 0.17) -> np.ndarray:
+    """(num_frames, 1, 3) f32 gripper point in world coordinates, one per
+    tracked frame. ``gripper_z`` is the gripper point's offset along the
+    flange axis: 0.17 m where episodes are loaded for training and
+    prediction, 0.18 m in preprocessing (gsdx keeps both values). An action
+    log shorter than the frames is padded at the front with its first line;
+    one more than 10 lines longer is cut; a frame without a readable line
+    takes the last."""
+    frame_idx = frame_indices_from_metadata(meta)
+    num_frames = len(frame_idx)
+    lines = load_actions(data_dir)
+    if len(lines) != num_frames:
+        lines = [lines[0]] * (int(frame_idx.max()) + 1 - len(lines)) + lines
+    if len(lines) - num_frames > 10:
+        lines = lines[:num_frames]
+    calib = load_calibration(data_dir)
+    r_b2w, t_b2w = calib["R_base2world"], calib["t_base2world"]
+    gripper_point = np.array([0.0, 0.0, gripper_z])
+
+    out = np.zeros((num_frames, 1, 3), np.float32)
+    for i, fi in enumerate(frame_idx):
+        try:
+            act = json.loads(lines[fi])
+        except (IndexError, json.JSONDecodeError):
+            act = json.loads(lines[-1])
+        pose = np.asarray(act["pose"], np.float64)
+        r_g2w = r_b2w @ rpy_to_rotation_matrix(*pose[3:6])
+        t_g2w = r_b2w @ (pose[:3] / 1000.0) + t_b2w
+        out[i, 0] = (r_g2w @ gripper_point + t_g2w).astype(np.float32)
+    return out
 
 
 def load_episode_images(seq_dir: str, meta: dict, t: int):
