@@ -54,16 +54,41 @@ Phases, each printing one JSON line:
      PSNR of every re-rendered frame against a render of the tracked frame,
      Chamfer distances against the tracked trajectory; rollout step ms,
      frame ms and frames/s.
-  8. profile: `torch.profiler` breakdown of a 5k rasterize fwd+bwd, of one
+  8. plan_gd: the GD planner at rope width (trained weights, 100
+     particles, max_nR 500) once: 32 samples of a uniform draw in the
+     rope's extent, 10 Adam steps on one chunk; its seconds, its best
+     reward and its draw's.
+  9. online: the demo apps' live loop at the RealSense stream size:
+     `FakeEnv` with a 300-point rope at 4 cameras x 640x480 ->
+     `PerceptionModule.get_tabletop_points_env(return_imgs=True)` ->
+     `OnlineGSTrainer.update_state` -> `train` for 700 iterations
+     (densification at 500 and 600; gsdx's 10,000 cut in depth) ->
+     `rollout_and_render` under a 12 cm push through the object's centre
+     with the trained rope model -> every rollout frame at the 4 cameras.
+     The compositor's forward and backward launch counters must be > 0,
+     the last 20 iterations' PSNR above the first 20's; kernels #1 and #2
+     against their plain versions on camera 0's tile inputs of the fitted
+     scene (n_accum 7, `online_kernel`); the first rollout step on the card
+     within 1e-4 m of the CPU's; fit iterations/s, the projected
+     10,000-iteration fit, rollout seconds, rendered frames/s. Kernel #1's
+     checks (here and in `predict_kernel`) print where its output differs
+     most from the plain version's, and whether that tile walked its whole
+     list.
+ 10. profile: `torch.profiler` breakdown of a 5k rasterize fwd+bwd, of one
      tracking iteration, of one MPPI iteration, of one rope-width train
-     iteration and of one predict step (a rollout step and 4 renders):
-     device time by kernel, the compositor kernels' device ms, device idle
-     share.
-  9. cli: `python -m gsdx_torch.apps.track` on a small synthetic episode,
+     iteration, of one predict step (a rollout step and 4 renders) and of
+     one online fit iteration: device time by kernel, the compositor
+     kernels' device ms, device idle share.
+ 11. cli: `python -m gsdx_torch.apps.track` on a small synthetic episode,
      `python -m gsdx_torch.apps.plan --env fake` on the committed rope
      checkpoint, and `apps.preprocess`, `apps.train` (1 epoch of 5 train and
      2 valid iterations) and `apps.predict` (4 steps, 1 camera) on a
-     temporary two-episode tree from a temporary working directory.
+     temporary two-episode tree from a temporary working directory; then
+     `apps.sim_real` (1 trial), `apps.sim_real_app` (clicks, run real, save
+     for the demo) and `apps.demo --assets` on the captured bundle, 60 fit
+     iterations each: frame directories, the .splat files and the bundle
+     must exist, and the demo must have read the bundle's PNGs with the
+     port's `read_png`.
 
 Then each phase's seconds; the run fails if it wrote into the checkout.
 The line before the last holds the kernel table; the last line is
@@ -1028,12 +1053,13 @@ def tracking_iteration():
     return track_iter
 
 
-def phase_profile(train_iteration, predict_step) -> list[dict]:
+def phase_profile(train_iteration, predict_step, online_iteration) -> list[dict]:
     """Device breakdown of a 5k-Gaussian 720p rasterize fwd+bwd, of one t=0
     tracking iteration of the slice's scene (densification off), of one
     MPPI iteration of the plan phase, of one rope-width train iteration
-    (batch assembly and step) and of one predict step (a rollout step and
-    4 renders at 720p)."""
+    (batch assembly and step), of one predict step (a rollout step and 4
+    renders at 720p) and of one online fit iteration (4 cameras at
+    640x480, fused rgb + seg)."""
     from gsdx_torch.render.rasterize import RasterizeConfig, rasterize
 
     cam = camera()
@@ -1060,6 +1086,8 @@ def phase_profile(train_iteration, predict_step) -> list[dict]:
         "(batch assembly and step)"))
     rows.append(device_profile(
         predict_step, "predict step: a rollout step and 4 renders at 720p"))
+    rows.append(device_profile(
+        online_iteration, "online fit iteration, rope, 4 cameras, 640x480, fitted scene"))
     for r in rows:
         emit(r)
     return rows
@@ -1286,33 +1314,105 @@ def rank_deficient(calls) -> tuple[int, int]:
     return low, total
 
 
-def compare_fwd_at(tf, counts, geo: dict, clk_mhz: float) -> dict:
-    """Kernel #1's forward against its plain version on one frame's tile
-    inputs, timed and bounded as the `kernels` phase does."""
+def largest_difference(out_k, out_p, counts, sub: int, tile_w: int) -> dict:
+    """Where the forward kernel's outputs differ most from the plain
+    version's: the tile, the output row (accum channel, or "logT"), the
+    pixel (x, y in the tile), the two values, and whether that tile walked
+    its whole list with no early stop."""
+    acc = (out_k[0] - out_p[0]).abs()
+    lt = (out_k[1] - out_p[1]).abs()
+    use_lt = float(lt.max()) > float(acc.max())
+    d = lt if use_lt else acc
+    t, ch, px = np.unravel_index(int(torch.argmax(d)), tuple(d.shape))
+    src = 1 if use_lt else 0
+    return {"tile": int(t), "row": "logT" if use_lt else int(ch),
+            "pixel": [int(px % tile_w), int(px // tile_w)],
+            "kernel": float(out_k[src][t, ch, px]), "plain": float(out_p[src][t, ch, px]),
+            "abs_diff": float(d[t, ch, px]), "count": int(counts[t]),
+            "nproc": int(out_k[2][t]),
+            "walked_whole_list": bool(int(out_k[2][t]) * sub >= int(counts[t])),
+            "tiles_differing": int((acc.flatten(1).amax(1) + lt.flatten(1).amax(1)
+                                    > 0).sum())}
+
+
+def compare_fwd_at(tf, counts, geo: dict, clk_mhz: float, what: str,
+                   presort: bool = False) -> dict:
+    """Kernel #1's forward (with ``presort``, its presorting variant)
+    against its plain version on one frame's tile inputs, timed and bounded
+    as the `kernels` phase does, with the place of the largest difference."""
     from gsdx_torch.kernels import composite as C
 
-    out_k, err, launch = check_forward(tf, counts, geo, False, "predict frame")
+    kw = dict(geo, presort=presort)
+    out_k, err, launch = check_forward(tf, counts, geo, presort, what)
+    with torch.no_grad():
+        out_p = C.composite_tiles_torch(tf, counts, **kw)
     nproc = out_k[2]
-    pairs = pair_counts(tf, counts, nproc, geo)
+    pairs = pair_counts(out_k[4] if presort else tf, counts, nproc, geo)
     if pairs["visible_outside_box"]:
         raise AssertionError("a visible pair lies outside its alpha_cut_box")
     nacc, visible = geo["n_accum"], pairs["visible"]
-    bytes_f = needed_bytes(counts, nproc, geo, tf.shape[2], False)[0]
+    bytes_f = needed_bytes(counts, nproc, geo, tf.shape[2], presort)[0]
     bound = bound_ms(bytes_f, (FLOPS_ALL + FWD_FLOPS_VIS(nacc)) * visible, 3 * visible,
                      clk_mhz)
-    return {"name": "composite_fwd", "T": tf.shape[0], "K": tf.shape[2],
-            "tile_h": geo["tile_h"], "sub": geo["sub_chunk"], "n_accum": nacc,
-            "nonempty_tiles": int((counts > 0).sum()), "nproc_flips": 0,
+    return {"name": "composite_fwd" + ("_presort" if presort else ""), "T": tf.shape[0],
+            "K": tf.shape[2], "tile_h": geo["tile_h"], "sub": geo["sub_chunk"],
+            "n_accum": nacc, "nonempty_tiles": int((counts > 0).sum()), "nproc_flips": 0,
             "early_stopped_tiles": int((nproc.long() * geo["sub_chunk"] < counts.long()).sum()),
             "pairs_processed": pairs["processed"], "pairs_visible": visible,
             "kept_share": pairs["patch_kept"] / max(1, pairs["patch_pairs"]),
             "max_abs_err": err, "launch": launch,
-            "ms": cuda_ms(lambda: C.composite_fwd(tf, counts, **geo)),
-            "device_ms": kernel_device_ms(lambda: C.composite_fwd(tf, counts, **geo),
+            "largest_difference": largest_difference(out_k, out_p, counts, geo["sub_chunk"],
+                                                     geo["tile_w"]),
+            "ms": cuda_ms(lambda: C.composite_fwd(tf, counts, **kw)),
+            "device_ms": kernel_device_ms(lambda: C.composite_fwd(tf, counts, **kw),
                                           r"\bfwd_kernel<"),
-            "plain_ms": cuda_ms(lambda: C.composite_tiles_torch(tf, counts, **geo), reps=3,
+            "plain_ms": cuda_ms(lambda: C.composite_tiles_torch(tf, counts, **kw), reps=3,
                                 warmup=1),
             "bound_ms": bound[0], "bound_by": bound[1], "bound_bytes": bytes_f}
+
+
+def compare_bwd_at(tf, counts, geo: dict, clk_mhz: float, presort: bool = False) -> dict:
+    """Kernel #2's backward (with ``presort``, on the forward's sorted copy
+    and rank) against its plain version on one frame's tile inputs (random
+    output gradients), timed and bounded as the `kernels` phase does."""
+    from gsdx_torch.kernels import composite as C
+
+    T, _, K = tf.shape
+    P = geo["tile_h"] * geo["tile_w"]
+    nacc = geo["n_accum"]
+    out_k = C.composite_fwd(tf, counts, **geo, presort=presort)
+    nproc = out_k[2]
+    feats, rank = (out_k[4], out_k[3]) if presort else (tf, None)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    g_acc = torch.randn(T, nacc, P, device="cuda", generator=g)
+    g_lt = torch.randn(T, 1, P, device="cuda", generator=g)
+    args = (feats, counts, nproc, out_k[1], g_acc, g_lt, rank)
+    args_p = (feats, counts, nproc, g_acc, g_lt, rank)
+    grad_k = C.composite_bwd(*args, **geo)
+    launch = C.last_launch()
+    grad_p = C.composite_bwd_torch(*args_p, **geo)
+    torch.cuda.synchronize()
+    scale = grad_p.abs().amax(dim=(0, 2), keepdim=True)
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    torch.testing.assert_close(grad_k / scale, grad_p / scale, rtol=0, atol=REL_TOL)
+    if launch["cluster"] < 2 or launch["blocks"] != T * launch["cluster"]:
+        raise AssertionError(f"backward launched {launch}: expected clusters of >= 2 "
+                             f"blocks, {T} of them")
+    visible = pair_counts(feats, counts, nproc, geo)["visible"]
+    bytes_b = needed_bytes(counts, nproc, geo, K, presort)[1]
+    bound = bound_ms(bytes_b, (FLOPS_ALL + BWD_FLOPS_VIS(nacc)) * visible, 4 * visible,
+                     clk_mhz)
+    return {"name": "composite_bwd" + ("_presort" if presort else ""), "T": T, "K": K,
+            "tile_h": geo["tile_h"], "sub": geo["sub_chunk"], "n_accum": nacc,
+            "max_abs_err": float((grad_k - grad_p).abs().max()),
+            "max_row_rel_err": float(((grad_k - grad_p).abs() / scale).max()),
+            "launch": launch,
+            "ms": cuda_ms(lambda: C.composite_bwd(*args, **geo)),
+            "device_ms": kernel_device_ms(lambda: C.composite_bwd(*args, **geo),
+                                          r"\bbwd_kernel<"),
+            "plain_ms": cuda_ms(lambda: C.composite_bwd_torch(*args_p, **geo), reps=3,
+                                warmup=1),
+            "bound_ms": bound[0], "bound_by": bound[1], "bound_bytes": bytes_b}
 
 
 def phase_predict(card: str, clk_mhz: float):
@@ -1436,7 +1536,8 @@ def phase_predict(card: str, clk_mhz: float):
             restore()
         (tf, counts), kw = fwd_calls[0]
         geo = {key: kw[key] for key in ("tiles_x", "tile_h", "tile_w", "n_accum", "sub_chunk")}
-        kernel = dict(compare_fwd_at(tf.clone(), counts.clone(), geo, clk_mhz), frame=t_k,
+        kernel = dict(compare_fwd_at(tf.clone(), counts.clone(), geo, clk_mhz,
+                                     "predict frame"), frame=t_k,
                       camera=0, gaussians=int(len(g0["means3D"])))
         with torch.inference_mode():
             frame_ms = cuda_ms(lambda: renderer.render(w2c[0], k[0], scene[t_k]), reps=10)
@@ -1470,6 +1571,335 @@ def phase_predict(card: str, clk_mhz: float):
                 renderer.render(w2c[c], k[c], scene[t_k])
 
     return row, kernel, predict_step
+
+
+ONLINE_ITERS, ONLINE_W, ONLINE_H = 700, 640, 480
+
+
+def rope_rollout_config():
+    """The demo apps' rollout settings for configs/rope.yaml."""
+    from gsdx_torch.io.config import load_config
+    from gsdx_torch.rollout.dynamics_module import RolloutConfig
+
+    train_cfg, _, data_cfg = load_config(ROPE_YAML)
+    return RolloutConfig(n_his=train_cfg.n_his, dist_thresh=0.005,
+                         max_nobj=data_cfg.max_nobj,
+                         fps_radius=sum(data_cfg.fps_radius_range) / 2,
+                         adj_thresh=sum(data_cfg.adj_radius_range) / 2, topk=data_cfg.topk,
+                         connect_all=data_cfg.connect_all, max_nR=data_cfg.max_nR)
+
+
+def first_step_inputs(params, action, n_his: int, n_proxy: int):
+    """The rollout's first step inputs, as `rollout_and_render` and
+    `DynamicsModule.rollout` build them from the fitted scene and a push."""
+    from gsdx_torch.core.transforms import quat_normalize
+    from gsdx_torch.kernels.fps import farthest_point_sampling
+
+    live = params.live > 0
+    keep = torch.sigmoid(params.logit_opacities[live])[:, 0] >= 0.1
+    xyz = params.means3d[live][keep].contiguous()
+    quat = quat_normalize(params.unnorm_rotations)[live][keep].contiguous()
+    start, end = (torch.as_tensor(a, dtype=torch.float32, device="cuda") for a in action)
+    n_steps = max(int(np.linalg.norm(action[1] - action[0]) / 0.005), 2)
+    delta = (end - start) / (n_steps - 1)
+    proxy = xyz[farthest_point_sampling(xyz, min(n_proxy, xyz.shape[0]), start_idx=0)]
+    return (proxy[None].repeat(n_his, 1, 1), start[None, None].repeat(n_his, 1, 1),
+            delta[None], xyz, quat)
+
+
+def phase_online(card: str, clk_mhz: float):
+    """The demo apps' live loop at the RealSense stream size: `FakeEnv` with
+    gsdx sim_real_app's 300-point rope at 4 cameras x 640x480 ->
+    `PerceptionModule.get_tabletop_points_env(return_imgs=True)` ->
+    `OnlineGSTrainer.update_state` -> `train` (ONLINE_ITERS iterations,
+    densification at 500 and 600) -> `rollout_and_render` under a 12 cm push
+    through the object's centre with the trained rope model -> every
+    rollout frame rendered at the 4 cameras. Kernels #1 and #2 against
+    their plain versions on camera 0's tile inputs of the fitted scene
+    (n_accum 7); the first rollout step on the card against the CPU.
+    Returns (row, forward kernel row, backward kernel row, a function of no
+    arguments running one online fit iteration)."""
+    import collections
+    import copy
+    import importlib
+
+    from gsdx_torch.apps.sim_real import push_through_centre
+    from gsdx_torch.apps.sim_real_app import rope_points
+    from gsdx_torch.core.gaussians import init_tracking_variables
+    from gsdx_torch.kernels import composite as C
+    from gsdx_torch.realworld.env import FakeEnv, FakeEnvConfig
+    from gsdx_torch.realworld.perception import PerceptionModule
+    from gsdx_torch.rollout.dynamics_module import DynamicsModule
+    from gsdx_torch.track.densify import DensifyConfig
+    from gsdx_torch.track.losses import LossWeights
+    from gsdx_torch.track.online import OnlineGSConfig, OnlineGSTrainer
+    from gsdx_torch.track.optimizer import GroupAdam, tracking_lrs
+    from gsdx_torch.track.trainer import (TrackingConfig, camera_order, compact_params,
+                                          make_fit_timestep)
+
+    t_phase = time.perf_counter()
+    env = FakeEnv(*rope_points(0), FakeEnvConfig(n_cameras=4, width=ONLINE_W,
+                                                 height=ONLINE_H), device="cuda")
+    pm = PerceptionModule(device="cuda")
+    t0 = time.perf_counter()
+    pts, cols, imgs, masks = pm.get_tabletop_points_env(env, return_imgs=True)
+    perceive_s = time.perf_counter() - t0
+    R_list, t_list = env.get_extrinsics()
+    gs = OnlineGSTrainer(OnlineGSConfig(num_iters=ONLINE_ITERS), device="cuda")
+    gs.update_state(pts, cols, [im.astype(np.float32) / 255.0 * m[..., None]
+                                for im, m in zip(imgs, masks)],
+                    [m.astype(np.float32) for m in masks], R_list, t_list,
+                    env.get_intrinsics())
+
+    # the fit, keeping the last 4 compositor forwards' inputs: its last 4
+    # iterations, one a camera (700 = 175 permutations of the 4)
+    R = importlib.import_module("gsdx_torch.render.rasterize")
+    orig_fwd, last_fwd = R.composite_fwd, collections.deque(maxlen=4)
+
+    def keep_last(*args, **kw):
+        last_fwd.append((args, kw))
+        return orig_fwd(*args, **kw)
+
+    R.composite_fwd = keep_last
+    torch.cuda.synchronize()
+    C.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        logs = gs.train()
+        torch.cuda.synchronize()
+    finally:
+        R.composite_fwd = orig_fwd
+    fit_s = time.perf_counter() - t0
+    fit_launches = dict(C.LAUNCHES)
+    live_after_fit = int(gs.params.num_live)
+    psnr = logs["psnr"].cpu().numpy()
+    num_pts = logs["num_pts"].cpu().numpy()
+
+    # kernels #1 and #2 on camera 0's tile inputs of the fit's last visit to
+    # it, in the variant the fit ran (fused rgb + seg: n_accum 7)
+    order = camera_order(ONLINE_ITERS, 4, np.random.default_rng(gs.seed))[-4:]
+    (tf, counts), kw = last_fwd[int(np.nonzero(order == 0)[0][0])]
+    geo = {key: kw[key] for key in ("tiles_x", "tile_h", "tile_w", "n_accum", "sub_chunk")}
+    if geo["n_accum"] != 7:
+        raise AssertionError(f"the online fit renders n_accum {geo['n_accum']}, not 7")
+    tf, counts, presort = tf.clone(), counts.clone(), kw["presort"]
+    last_fwd.clear()
+    kernel_f = dict(compare_fwd_at(tf, counts, geo, clk_mhz, "online fit", presort),
+                    camera=0, iteration=ONLINE_ITERS - 4 + int(np.nonzero(order == 0)[0][0]))
+    kernel_b = dict(compare_bwd_at(tf, counts, geo, clk_mhz, presort), camera=0)
+    del tf, counts
+
+    # the rollout, then every frame at the 4 cameras
+    fitted = gs.params
+    model = rope_model()
+    dm = DynamicsModule(model, rope_rollout_config())
+    live = gs.params.live > 0
+    particles = gs.params.means3d[live].cpu().numpy()
+    start, end = push_through_centre(particles, float(particles[:, 2].mean()))
+    action = np.stack([start, end])
+    step_in = first_step_inputs(gs.params, action, dm.cfg.n_his, dm.cfg.n_fps_proxy)
+    torch.cuda.synchronize()
+    C.reset_launches()
+    t0 = time.perf_counter()
+    rendervars, _ = gs.rollout_and_render(dm, action)
+    torch.cuda.synchronize()
+    rollout_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frames = [[gs.render(rv, c, bg=(0, 0, 0))[0] for rv in rendervars] for c in range(4)]
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    render_launches = dict(C.LAUNCHES)
+    n_frames = 4 * len(rendervars)
+    finite = all(bool(torch.isfinite(f).all()) for cam in frames for f in cam)
+    del frames
+
+    # the first rollout step on the card and on the CPU, from the same inputs
+    step_gpu = dm.step(*step_in)
+    step_cpu = DynamicsModule(copy.deepcopy(model).cpu(), dm.cfg).step(
+        *[a.cpu() for a in step_in])
+    step_err = float((step_gpu[0].cpu() - step_cpu[0]).abs().max())
+    step_ms = cuda_ms(lambda: dm.step(*step_in), reps=5)
+
+    row = {"phase": "online", "card": card, "cameras": 4, "width": ONLINE_W,
+           "height": ONLINE_H, "perceived_points": int(len(pts)), "perceive_s": perceive_s,
+           "fit_iters": ONLINE_ITERS, "fit_s": fit_s,
+           "fit_iters_per_s": ONLINE_ITERS / fit_s,
+           "projected_10000_iter_fit_s": 10000 * fit_s / ONLINE_ITERS,
+           "fit_launches": fit_launches, "render_launches": render_launches,
+           "psnr_first20": float(psnr[:20].mean()), "psnr_last20": float(psnr[-20:].mean()),
+           "num_pts": {str(i): int(num_pts[i]) for i in (0, 499, 500, 599, 600,
+                                                          ONLINE_ITERS - 1)},
+           "live_after_fit": live_after_fit,
+           "rollout_steps": len(rendervars), "rollout_s": rollout_s,
+           "rollout_step_ms": step_ms, "render_s": render_s,
+           "rendered_frames": n_frames, "rendered_frames_per_s": n_frames / render_s,
+           "step_card_vs_cpu_max_abs_m": step_err,
+           "push": action.tolist(), "seconds": time.perf_counter() - t_phase}
+    emit(row)
+    emit(dict(kernel_f, phase="online_kernel"))
+    emit(dict(kernel_b, phase="online_kernel"))
+    if (fit_launches["fwd"] + fit_launches["fwd_presort"] <= 0
+            or fit_launches["bwd"] + fit_launches["bwd_presort"] <= 0):
+        raise AssertionError(f"the compositor did not launch in the online fit: {fit_launches}")
+    if render_launches["fwd"] <= 0:
+        raise AssertionError(f"the compositor did not launch in the renders: {render_launches}")
+    if not (np.isfinite(psnr).all() and row["psnr_last20"] > row["psnr_first20"]):
+        raise AssertionError("the online fit's PSNR did not rise")
+    if not (np.isfinite(num_pts).all() and num_pts[-1] > 0):
+        raise AssertionError("no live Gaussian after the densify steps")
+    if num_pts[500] == num_pts[499] and num_pts[600] == num_pts[599]:
+        raise AssertionError("densification changed nothing at 500 and 600")
+    if not finite or not all(np.isfinite(rv["means3D"]).all() for rv in rendervars):
+        raise AssertionError("non-finite rollout or frames")
+    if not step_err <= 1e-4:
+        raise AssertionError(f"online rollout step card vs CPU: {step_err} m > 1e-4")
+
+    # one fit iteration of the fitted scene at the fit's capacity (the
+    # compositor variant it ran), densification off
+    w2c = np.stack(gs.metadata["w2c"])
+    centers = np.linalg.inv(w2c)[:, :3, 3]
+    radius = float(1.1 * np.max(np.linalg.norm(centers - centers.mean(0), axis=-1)))
+    capacity = int(np.ceil(4 * len(gs.init_pt_cld) / 256.0) * 256)
+    params, variables = compact_params(
+        fitted, init_tracking_variables(fitted.capacity, 20, radius, device="cuda"),
+        pad_to=capacity)
+    fit1 = make_fit_timestep(TrackingConfig(weights=LossWeights(im=1.0, seg=3.0),
+                                            densify=DensifyConfig(start=10**9)),
+                             is_initial=True, num_iters=1)
+    state = (GroupAdam().init(params), variables)
+    lrs = tracking_lrs(radius)
+
+    def online_iteration():
+        fit1(params, *state, lrs, gs.cams, gs.ims, gs.segs, np.zeros(1, np.int32))
+
+    return row, kernel_f, kernel_b, online_iteration
+
+
+GD_BOX = ((0.1, -0.1, -np.pi, 5.0), (0.5, 0.15, np.pi, 20.0))  # the rope's extent
+
+
+def phase_plan_gd(card: str) -> dict:
+    """The GD planner at rope width (trained weights, 100 particles, max_nR
+    500) once on the card: 32 samples of a uniform draw in the rope's
+    extent, 10 Adam steps (lr 1e-2) on one chunk, gradients through the
+    GNN module; its seconds, and its best reward against the best reward
+    of the draw it started from."""
+    from gsdx_torch.plan.actions import sample_action_seq
+    from gsdx_torch.plan.cost import running_cost
+    from gsdx_torch.plan.dynamics_rollout import RolloutSpec, make_batched_rollout
+    from gsdx_torch.plan.planner import MPPIConfig, Planner
+    from gsdx_torch.realworld.env import WORKSPACE_BBOX
+
+    n, chunk, iters = 32, 32, 10
+    frames = trajectory_particles(100)
+    state, target = frames[0].contiguous(), frames[12].contiguous()
+    bbox = torch.as_tensor(WORKSPACE_BBOX, device="cuda")
+    rollout = make_batched_rollout(rope_model(), RolloutSpec(**PLAN_SPEC))
+    planner = Planner(MPPIConfig(n_sample=n, n_update_iter=iters, planner_type="GD",
+                                 gd_sample_chunk=chunk, lr=1e-2,
+                                 action_lower_lim=GD_BOX[0], action_upper_lim=GD_BOX[1]),
+                      rollout, lambda ss, aa, s: running_cost(ss, aa, s, target, bbox),
+                      device="cuda")
+    init = torch.tensor([[0.3, 0.0, 0.0, 10.0]], device="cuda")
+    u = torch.rand((n, 1, 4), generator=torch.Generator(device="cuda").manual_seed(43),
+                   device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = planner.trajectory_optimization(None, state, init, draws=[u])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    with torch.no_grad():
+        acts = sample_action_seq(None, init, planner.lower, planner.upper, n, 0, draws=u)
+        res = rollout(state, acts)
+        drawn = running_cost(res["state_seqs"], res["action_seqs"], state, target,
+                             bbox)["reward_seqs"]
+    row = {"phase": "plan_gd", "card": card, "n_sample": n, "gd_sample_chunk": chunk,
+           "adam_steps": iters, "lr": 1e-2, "n_obj": 100, "max_nR": 500,
+           "seconds": seconds, "best_reward": float(out["best_reward"]),
+           "draw_best_reward": float(drawn.max()), "draw_mean_reward": float(drawn.mean()),
+           "best_act": out["act_seq"].detach().cpu().numpy().tolist()}
+    emit(row)
+    if not (np.isfinite(row["best_reward"]) and np.isfinite(row["draw_best_reward"])):
+        raise AssertionError("non-finite rewards in the GD plan")
+    return row
+
+
+def phase_online_cli() -> dict:
+    """`apps.sim_real` (1 trial), `apps.sim_real_app` (fake env, clicks, run
+    real, save for the demo) and `apps.demo --assets` on the bundle it
+    captured, 60 fit iterations each, from a temporary working directory
+    whose log/rope/checkpoints/latest.ckpt is the committed rope checkpoint."""
+    import importlib.util
+
+    from gsdx_torch.apps.sim_real_app import rope_points
+    from gsdx_torch.realworld.env import FakeEnv
+    from gsdx_torch.track.online import rt_to_w2c
+    from gsdx_torch.utils.viz import project_points
+
+    # clicks 6 cm either side of the rope's centre, seen from camera 0 of
+    # the apps' 320x240 environment
+    env = FakeEnv(*rope_points(0), device="cuda")
+    c = env.get_state_points().mean(0)
+    R, t = env.get_extrinsics()
+    px = project_points(np.stack([c - [0.06, 0, 0], c + [0.06, 0, 0]]),
+                        env.get_intrinsics()[0], rt_to_w2c(R[0], t[0]))
+    clicks = ",".join(f"{v:.1f}" for v in px.reshape(-1))
+    env_vars = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_dir = os.path.join(tmp, "log", "rope", "checkpoints")
+        os.makedirs(ckpt_dir)
+        os.symlink(ROPE_CKPT, os.path.join(ckpt_dir, "latest.ckpt"))
+
+        def run(app, *extra):
+            t0 = time.perf_counter()
+            done = subprocess.run(
+                [sys.executable, "-m", f"gsdx_torch.apps.{app}", "--config", ROPE_YAML,
+                 "--device", "cuda", "--gs_iters", "60", *extra],
+                check=True, cwd=tmp, env=env_vars, capture_output=True, text=True)
+            seconds[app] = time.perf_counter() - t0
+            return done.stdout
+
+        run("sim_real", "--trials", "1", "--out", "out/sim_real")
+        run("sim_real_app", "--env", "fake", "--clicks", clicks, "--run-real",
+            "--save-for-demo", "--out", "out/sim_real_app")
+        assets = os.path.join(tmp, "out", "sim_real_app", "demo_assets")
+        (obj,) = os.listdir(assets)
+        bundle = os.path.join(assets, obj)
+        demo_out = run("demo", "--assets", bundle, "--clicks", clicks, "--out", "out/demo")
+
+        found = {}
+        for name in ("sim_real", "sim_real_app", "demo"):
+            found[name] = sorted(os.listdir(os.path.join(tmp, "out", name, "sim_cam0")))
+            if len(found[name]) < 2:
+                raise AssertionError(f"{name} wrote {found[name]} under sim_cam0")
+        bundle_files = sorted(os.listdir(bundle))
+        need = ["R_list.npy", "gs_orig.splat", "intr_list.npy", "pcd.ply", "t_list.npy",
+                *[f"img_{v}.png" for v in range(4)], *[f"mask_{v}.png" for v in range(4)]]
+        missing = [f for f in need if f not in bundle_files]
+        (action,) = [f for f in bundle_files if f.startswith("action_")]
+        action_files = sorted(os.listdir(os.path.join(bundle, action)))
+        views = [len(os.listdir(os.path.join(bundle, action, f"video_{v}")))
+                 for v in range(4)]
+        splats = {p: os.path.getsize(os.path.join(tmp, p)) for p in (
+            os.path.join("out", "sim_real_app", "demo_assets", obj, "gs_orig.splat"),
+            os.path.join("out", "sim_real_app", "demo_assets", obj, action, "gs_pred.splat"),
+            os.path.join("out", "demo", "gs.splat"))}
+        read = re.search(r"read 8 PNGs of .* with read_png", demo_out)
+    row = {"phase": "cli_online", "seconds": seconds, "clicks": clicks,
+           "frames": {k: len(v) for k, v in found.items()}, "bundle": bundle_files,
+           "action_files": action_files, "action_view_frames": views,
+           "splat_bytes": {os.path.basename(k): v for k, v in splats.items()},
+           "demo_read_pngs_with_read_png": bool(read),
+           "pil_installed": importlib.util.find_spec("PIL") is not None}
+    emit(row)
+    if missing or "gs_pred.splat" not in action_files or min(views) < 2:
+        raise AssertionError(f"the bundle lacks {missing} or its push's files: {action_files}")
+    if not all(v > 0 for v in splats.values()):
+        raise AssertionError(f"empty .splat files: {splats}")
+    if not read:
+        raise AssertionError("the demo did not read the bundle's PNGs with read_png")
+    return row
 
 
 def rope_cli_yaml(text: str) -> str:
@@ -1587,10 +2017,14 @@ def main() -> int:
     _, train_iteration = timed("learn", phase_learn, card)
     predict_row, predict_kernel, predict_step = timed("predict", phase_predict, card,
                                                       info["max_sm_mhz"])
-    timed("profile", phase_profile, train_iteration, predict_step)
+    timed("plan_gd", phase_plan_gd, card)
+    online_row, online_fwd, online_bwd, online_iteration = timed(
+        "online", phase_online, card, info["max_sm_mhz"])
+    timed("profile", phase_profile, train_iteration, predict_step, online_iteration)
     timed("cli", phase_cli)
     timed("cli_plan", phase_plan_cli)
     timed("cli_learn", phase_learn_cli)
+    timed("cli_online", phase_online_cli)
     emit({"phase": "seconds", **seconds})
     after = tree_state()
     changed = sorted(p for p in set(before) | set(after) if before.get(p) != after.get(p))
@@ -1611,12 +2045,18 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None})
-        if variant == "fwd":  # the predict path's launches and shape beside
+        shape_keys = ("T", "K", "tile_h", "sub", "n_accum", "max_abs_err", "ms",
+                      "device_ms", "plain_ms", "bound_ms", "bound_by")
+        if variant == "fwd":  # the predict path's launches and shape
             table[-1]["launches_predict"] = predict_row["launches"]["fwd"]
-            table[-1]["predict_shape"] = {
-                key: predict_kernel[key] for key in (
-                    "T", "K", "tile_h", "sub", "n_accum", "max_abs_err", "ms",
-                    "device_ms", "plain_ms", "bound_ms", "bound_by")}
+            table[-1]["predict_shape"] = {key: predict_kernel[key] for key in shape_keys}
+        # the online path's launches (fit and renders), and the shape of the
+        # variant its fit ran
+        table[-1]["launches_online"] = (online_row["fit_launches"][variant]
+                                        + online_row["render_launches"][variant])
+        for k in (online_fwd, online_bwd):
+            if k["name"] == r["name"]:
+                table[-1]["online_shape"] = {key: k[key] for key in shape_keys}
     rope, gemm = gnn_rows[0], gnn_rows[1]  # the plan path's shapes
     table.append({
         "name": "gnn_forward", "route": "cuda",

@@ -10,8 +10,10 @@ writing `<out>/camera_{c}/frame_{t:04d}.png`.
         --episode <raw episode dir> --params <tracking output dir> \\
         --out out/predict
 
-`--overlay` (keypoint trails and a coverage pass) needs the port of
-gsdx's `utils/viz.py` (OpenCV, matplotlib) and is refused.
+`--overlay` blends each frame with its coverage (an all-white render
+on black) over grey and draws the end effector's trail; it needs OpenCV
+and matplotlib (`utils/viz.py`) and raises an ImportError naming the one
+that is missing.
 """
 
 from __future__ import annotations
@@ -79,6 +81,23 @@ def collect_scene_data(params_path: str, data_dir: str, output_dir: str, model,
     return scene_data, vis, meta
 
 
+def overlay_frames(frames, scene_data, vis, renderer, w2c, k) -> list:
+    """Each frame blended by its coverage (the Gaussians rendered white on
+    black) over grey 0.7, with the end effector's trail drawn on it."""
+    from gsdx_torch.utils.viz import TrailVisualizer, project_points
+
+    trail = TrailVisualizer()
+    out = []
+    for frame, sd, v in zip(frames, scene_data, vis):
+        ones = dict(sd, colors_precomp=np.ones_like(sd["colors_precomp"]))
+        alpha = renderer.render(w2c, k, ones, bg=(0, 0, 0))[0][0].cpu().numpy()[..., None]
+        frame = frame * alpha + 0.7 * (1 - alpha)
+        eef_px = project_points(v["tool_kp"].reshape(-1, 3), k, w2c)
+        frame = trail.draw((np.clip(frame, 0, 1) * 255).astype(np.uint8), eef_px)
+        out.append(frame.astype(np.float32) / 255.0)
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--config", required=True)
@@ -89,7 +108,8 @@ def main(argv=None):
     p.add_argument("--epoch", default="latest")
     p.add_argument("--cameras", type=int, default=4)
     p.add_argument("--max_steps", type=int, default=1000)
-    p.add_argument("--overlay", action="store_true", help="not ported")
+    p.add_argument("--overlay", action="store_true",
+                   help="coverage blend and end-effector trail (OpenCV, matplotlib)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
@@ -99,12 +119,12 @@ def main(argv=None):
     from gsdx_torch.render.renderer import Renderer
 
     if args.overlay:
-        raise NotImplementedError(
-            "--overlay needs the port of gsdx's utils/viz.py (OpenCV and "
-            "matplotlib drawing), which is not ported yet; run without --overlay")
+        from gsdx_torch.utils.viz import require_drawing_packages
+
+        require_drawing_packages()
     device = require_device(args.device)
     train_cfg, data_cfg, model = load_trained_model(args.config, args.epoch, device)
-    scene_data, _, meta = collect_scene_data(
+    scene_data, vis, meta = collect_scene_data(
         os.path.join(args.params, "params.npz"), args.episode, args.params, model,
         train_cfg, data_cfg, max_steps=args.max_steps, device=device)
 
@@ -115,6 +135,8 @@ def main(argv=None):
         with torch.inference_mode():
             frames = [chw_to_hwc(renderer.render(w2c[c], k[c], sd)[0].cpu().numpy())
                       for sd in scene_data]
+            if args.overlay:
+                frames = overlay_frames(frames, scene_data, vis, renderer, w2c[c], k[c])
         path = write_video(os.path.join(args.out, f"camera_{c}"), frames)
         print(f"wrote {path} ({len(frames)} frames)")
 

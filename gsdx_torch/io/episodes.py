@@ -6,6 +6,7 @@
                and degrees), calibration_handeye_result.pkl
   metadata: train_meta.json / metadata.json {w, h, k, w2c, fn, cam_id}
   tracking output: params.npz, per-timestep snapshots stacked over time
+  scene export: `save_to_splat`, the web viewers' binary .splat
 """
 
 from __future__ import annotations
@@ -128,3 +129,48 @@ def load_episode_images(seq_dir: str, meta: dict, t: int):
         ims.append(im.transpose(2, 0, 1))
         segs.append(np.stack([seg, np.zeros_like(seg), 1.0 - seg], axis=0))
     return np.stack(ims), np.stack(segs)
+
+
+def save_to_splat(pts, colors, scales, quats, opacities, output_file: str):
+    """Binary .splat export for web viewers (`src/real_world/gs/convert.py:23-51`):
+    per splat [pos f32x3 | scale f32x3 | rgba u8x4 | quat u8x4], scene
+    centered and rotated -90 deg about x. Vectorized (the reference writes a
+    python loop per splat)."""
+    pts = np.asarray(pts, np.float32)
+    pts = pts - pts.mean(axis=0)
+    rot_x = np.array([[1, 0, 0], [0, 0, 1], [0, -1, 0]], np.float32)  # inv(x+90)
+    pts = pts @ rot_x.T
+
+    w = np.sqrt(np.maximum(1 + np.trace(rot_x), 1e-8)) / 2
+    rq = np.array([
+        w,
+        (rot_x[2, 1] - rot_x[1, 2]) / (4 * w),
+        (rot_x[0, 2] - rot_x[2, 0]) / (4 * w),
+        (rot_x[1, 0] - rot_x[0, 1]) / (4 * w),
+    ], np.float32)
+    q = np.asarray(quats, np.float32)
+    w1, x1, y1, z1 = rq
+    w2, x2, y2, z2 = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+    q_rot = np.stack([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    ], axis=1)
+    q_rot = q_rot / np.maximum(np.linalg.norm(q_rot, axis=1, keepdims=True), 1e-9)
+
+    n = pts.shape[0]
+    rgba = np.clip(
+        np.concatenate([np.asarray(colors), np.asarray(opacities).reshape(n, 1)],
+                       axis=1) * 255, 0, 255
+    ).astype(np.uint8)
+    quat_u8 = np.clip(q_rot * 128 + 128, 0, 255).astype(np.uint8)
+
+    rec = np.zeros(n, dtype=[("pos", "<f4", 3), ("scale", "<f4", 3),
+                             ("rgba", "u1", 4), ("quat", "u1", 4)])
+    rec["pos"] = pts
+    rec["scale"] = np.asarray(scales, np.float32)
+    rec["rgba"] = rgba
+    rec["quat"] = quat_u8
+    with open(output_file, "wb") as f:
+        f.write(rec.tobytes())

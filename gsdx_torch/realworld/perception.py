@@ -59,13 +59,26 @@ class PerceptionModule:
         R_list: List[np.ndarray],  # camera -> world rotations
         t_list: List[np.ndarray],
         prompt: str = "object",
-    ) -> Tuple[np.ndarray, np.ndarray]:
+        obj_names: Optional[List[str]] = None,
+        return_imgs: bool = False,
+    ) -> Tuple[np.ndarray, ...]:
         """Fused object point cloud: per-view mask -> unproject -> world ->
         bbox crop -> 5 mm voxel downsampling -> iterative statistical
-        outlier removal. Returns (points (M, 3), colours (M, 3) in [0, 1])."""
-        pts_all, col_all = [], []
+        outlier removal. Returns (points (M, 3), colours (M, 3) in [0, 1]);
+        with ``return_imgs`` also the views' u8 images and boolean masks.
+
+        With ``obj_names`` and a segmenter that gives instance masks
+        (``table_object_masks``), a view's mask is everything but the table
+        less the objects; otherwise it is the provider's object mask."""
+        pts_all, col_all, mask_all = [], [], []
+        table_flow = obj_names and hasattr(self.segmenter, "table_object_masks")
         for c in range(len(colors)):
-            mask = np.asarray(self.segmenter.segment(colors[c], prompt), bool)
+            if table_flow:
+                _, _, mask = self.segmenter.table_object_masks(colors[c], obj_names)
+            else:
+                mask = self.segmenter.segment(colors[c], prompt)
+            mask = np.asarray(mask, bool)
+            mask_all.append(mask)
             depth = depths[c].astype(np.float32)
             if depths[c].dtype == np.uint16:
                 depth = depth / 1000.0
@@ -86,7 +99,7 @@ class PerceptionModule:
         pts = np.concatenate(pts_all, axis=0)
         cols = np.concatenate(col_all, axis=0)
         if len(pts) == 0:
-            return pts, cols
+            return (pts, cols, list(colors), mask_all) if return_imgs else (pts, cols)
 
         # fixed-capacity device pipeline
         dev = self.device
@@ -115,12 +128,16 @@ class PerceptionModule:
             final_cols = cols[idx]
         else:
             final_cols = np.zeros((0, 3), np.float32)
+        if return_imgs:
+            return final_pts, final_cols, list(colors), mask_all
         return final_pts, final_cols
 
-    def get_tabletop_points_env(self, env, prompt: str = "object"):
-        """Perceive straight from an Env."""
+    def get_tabletop_points_env(self, env, prompt: str = "object",
+                                return_imgs: bool = False):
+        """Perceive straight from an Env; ``return_imgs`` as in
+        `get_tabletop_points`."""
         obs = env.get_obs(get_color=True, get_depth=True)
         R_list, t_list = env.get_extrinsics()
         return self.get_tabletop_points(obs["color"], obs["depth"],
                                         env.get_intrinsics(), R_list, t_list,
-                                        prompt=prompt)
+                                        prompt=prompt, return_imgs=return_imgs)

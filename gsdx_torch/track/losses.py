@@ -31,8 +31,15 @@ class LossWeights(NamedTuple):
     soft_col_cons: float = 0.01  # weighs a term that is always 0
 
 
+def _abs(x):
+    """|x| with JAX's derivative, 1 at x == 0 (torch.abs's is 0 there).
+    Losses meet exact zeros where a render and its target agree, as on a
+    masked target's black background."""
+    return torch.where(x >= 0, x, -x)
+
+
 def l1_loss(x, y):
-    return torch.abs(x - y).mean()
+    return _abs(x - y).mean()
 
 
 def _masked_mean(x, mask, eps=1e-8):
@@ -189,7 +196,7 @@ def rigidity_losses(params: GaussianParams, v: TrackingVariables) -> dict:
                                    nbr_mask)
     losses["floor"] = _masked_mean(torch.clamp(pts[:, 1], min=0.0), fg_f)
     bg_f = is_bg.float()
-    losses["bg"] = _masked_mean(torch.sum(torch.abs(pts - v.init_bg_pts), -1),
+    losses["bg"] = _masked_mean(torch.sum(_abs(pts - v.init_bg_pts), -1),
                                 bg_f) + _masked_mean(
-        torch.sum(torch.abs(rot - v.init_bg_rot), -1), bg_f)
+        torch.sum(_abs(rot - v.init_bg_rot), -1), bg_f)
     return losses

@@ -347,6 +347,53 @@ def test_gd_planner_improves_reward(scene):
     assert out["act_seq"].shape == (1, 4) and torch.isfinite(out["best_reward"])
 
 
+
+def test_gd_planner_matches_gsdx_with_the_draw_replayed(scene):
+    """GD planning on the rope's extent (x 0.1-0.5 m, y -0.1-0.15 m), where
+    pushes reach the rope and its reward has a gradient: 16 samples of
+    gsdx's uniform draw, 10 Adam steps a chunk of 8, lr 1e-2."""
+    n, iters, chunk, lr = 16, 10, 8, 1e-2
+    lower = (0.1, -0.1, -np.pi, 2.0)
+    upper = (0.5, 0.15, np.pi, 3.0)
+    spec = dict(SPEC, max_repeat=3, sort_chunks=1)
+    state, target = scene["state"], scene["target"]
+    bbox = WORKSPACE_BBOX
+    init = np.array([[0.3, 0.0, 0.0, 2.5]], np.float32)
+    key = jax.random.PRNGKey(5)
+
+    roll_j = j_rollout(JModel(JModelConfig()), JSpec(**spec))
+    planner_j = JPlanner(
+        JMPPI(n_sample=n, n_update_iter=iters, planner_type="GD", gd_sample_chunk=chunk,
+              lr=lr, action_lower_lim=lower, action_upper_lim=upper),
+        lambda s, a, needs_grad=False: roll_j(scene["jparams"], s, a,
+                                              needs_grad=needs_grad),
+        lambda ss, aa, s: jcost.running_cost(ss, aa, s, jnp.asarray(target),
+                                             jnp.asarray(bbox)))
+    ref = planner_j.trajectory_optimization(key, jnp.asarray(state), jnp.asarray(init))
+
+    # gsdx's GD draws one uniform block from the key itself
+    u = torch.as_tensor(np.array(jax.random.uniform(key, (n, 1, 4))))
+    planner_t = Planner(
+        MPPIConfig(n_sample=n, n_update_iter=iters, planner_type="GD",
+                   gd_sample_chunk=chunk, lr=lr, action_lower_lim=lower,
+                   action_upper_lim=upper),
+        make_batched_rollout(scene["model"], RolloutSpec(**spec)),
+        lambda ss, aa, s: tcost.running_cost(ss, aa, s, torch.as_tensor(target),
+                                             torch.as_tensor(bbox)), device="cpu")
+    out = planner_t.trajectory_optimization(None, torch.as_tensor(state),
+                                            torch.as_tensor(init), draws=[u])
+    draws = tact.sample_action_seq(None, torch.as_tensor(init), planner_t.lower,
+                                   planner_t.upper, n, iter_index=0, draws=u)
+    # the best sample moved from its draw (it is far from every draw)
+    moved = (draws[:, 0] - out["act_seq"][0]).abs().max(-1).values.min()
+    assert float(moved) > 1e-2
+    # f32 rollouts, gradients and Adam steps of a trained net in another
+    # summation order: 1e-5
+    np.testing.assert_allclose(out["act_seq"].detach().numpy(), np.asarray(ref["act_seq"]),
+                               rtol=0, atol=1e-5)
+    assert float(out["best_reward"]) == pytest.approx(float(ref["best_reward"]), abs=1e-5)
+
+
 # ---------------------------------------------------------------- environment
 
 

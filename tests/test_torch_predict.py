@@ -170,7 +170,7 @@ def test_png_writer_decodes_to_the_frame(rng, tmp_path):
         f.write(encode_png(u8))
     np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "u8.png")), u8)
     with pytest.raises(ValueError):
-        encode_png(np.zeros((4, 5)))
+        encode_png(np.zeros((4, 5, 2)))
 
 
 def test_learn_and_predict_clis_on_the_cpu(rng, tmp_path, monkeypatch):
@@ -219,9 +219,12 @@ def test_learn_and_predict_clis_on_the_cpu(rng, tmp_path, monkeypatch):
 
     with pytest.raises(NotImplementedError, match="dist/"):
         train.main(["--config", str(cfg), "--dp", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="viz"):
-        predict.main(["--config", str(cfg), "--episode", "x", "--params", "y", "--overlay",
-                      "--device", "cpu"])
+    # --overlay: the same frames blended by their coverage, with the trail
+    predict.main(["--config", str(cfg), "--episode", str(base / "data" / name / "episode_00"),
+                  "--params", str(ep), "--out", "out/overlay", "--max_steps", "4",
+                  "--cameras", "1", "--overlay", "--device", "cpu"])
+    over = np.asarray(Image.open(tmp_path / "out" / "overlay" / "camera_0" / pngs[-1]))
+    assert over.shape == (H, W, 3) and not np.array_equal(over, im)
     if not torch.cuda.is_available():  # every CLI defaults to the card
         for main, args in ((preprocess.main, []), (train.main, []),
                            (predict.main, ["--episode", "x", "--params", "y"])):
