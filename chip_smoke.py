@@ -4,10 +4,12 @@
 
 Phases, each printing one JSON line:
   1. card + build: the card's name and power limit; nvcc builds the
-     compositor, GNN and GNN GEMM kernel libraries from gsdx_torch/csrc, in
-     parallel; each kernel's registers and spills (a compositor kernel that
-     spills fails), and `cuobjdump -sass` must find HGMMA (wgmma)
-     instructions in the GEMM kernel.
+     compositor, GNN, GNN GEMM and probe kernel libraries from
+     gsdx_torch/csrc, in parallel; each kernel's registers and spills (a
+     compositor kernel that spills fails), and `cuobjdump -sass` must find
+     HGMMA (wgmma) instructions in the GEMM kernel, and MUFU instructions in
+     the transcendental variant of the hot-loop probe (kernel #4) and none
+     in its polynomial variant.
   2. kernels: each compositor variant (forward, forward with presort,
      backward, backward with presort) against its plain PyTorch version on
      real 720p tile inputs (8192 and 16384 Gaussians, and a saturating
@@ -89,6 +91,27 @@ Phases, each printing one JSON line:
      iterations each: frame directories, the .splat files and the bundle
      must exist, and the demo must have read the bundle's PNGs with the
      port's `read_png`.
+
+ 12. probes: kernel #5 (`dynamic_roll`) bit-equal to `torch.roll` at shifts
+     0, 3, 130, 511, -1 and 515; kernel #4 (`composite_hot_loop`) at the
+     TPU probe's shape (T 128, K 512, sub 64 and 128), both variants,
+     against its plain version within tests/test_torch_probes.py's
+     tolerance; then the probe paths with the launch counters at 0:
+     tools/dynamic_roll_probe.py and tools/transcendental_probe.py's A/B
+     (us a granule, the transcendental share, each variant's bound).
+ 13. reference: `rasterize` against the dense `render_reference` on a
+     120-Gaussian 40x64 scene (values and gradients).
+ 14. masks: `python -m gsdx_torch.apps.masks` obtain, merge, initpcd and
+     metadata on a synthetic 4-camera 1280x720 3-frame episode (8-bit
+     colour, 16-bit depth, written by the port's PNG writer); the card's
+     initial cloud must be the CPU's within 1e-6 m.
+ 15. real_env: `apps/plan.py` `main --env real --cameras synthetic:4
+     --robot_ip fake` at rope width (trained weights, 1000 samples, 2
+     actions of 1 chunk) on static 640x480 views of a patch on the table:
+     capture processes -> ring buffers -> `RealEnv.get_obs` -> perception
+     -> MPPI through the fused GNN kernel (launches > 0) -> `RealEnv.step`
+     (2 calls) -> `FakeArm`; the camera processes joined after `stop`;
+     each action's seconds by stage and each camera's put rate.
 
 Then each phase's seconds; the run fails if it wrote into the checkout.
 The line before the last holds the kernel table; the last line is
@@ -364,6 +387,11 @@ def ptxas_report(logs) -> dict:
             name = next((k for k in ("gnn_gemm", "gnn_linear", "gnn_edge_first",
                                      "gnn_message", "fwd", "bwd")
                          if re.search(rf"\d{k}_kernel", m.group(1))), m.group(1))
+            probe = re.search(r"hot_loop_kernelILb([01])ELi(\d+)E", m.group(1))
+            if probe:
+                name = f"hot_loop_{'transcend' if probe.group(1) == '1' else 'poly'}_{probe.group(2)}"
+            elif "roll_kernel" in m.group(1):
+                name = "dynamic_roll"
             if name in ("fwd", "bwd"):  # one entry per n_accum instantiation
                 nacc = re.search(rf"{name}_kernelILi(\d+)E", m.group(1))
                 name = f"composite_{name}_nacc{nacc.group(1) if nacc else '?'}"
@@ -377,22 +405,51 @@ def ptxas_report(logs) -> dict:
     return report
 
 
+def sass_functions(path) -> dict:
+    """Each kernel function's SASS in the library at ``path``, by mangled name."""
+    sass = subprocess.run([cuobjdump(), "-sass", str(path)],
+                          capture_output=True, text=True, check=True).stdout
+    return {part.splitlines()[0].strip(): part for part in sass.split("Function : ")[1:]}
+
+
+def mufu_counts(path) -> dict:
+    """MUFU instructions (all, EX2, LG2) in each instantiation of the hot-loop
+    probe, keyed "transcend_<sub>" / "poly_<sub>". The polynomial variant
+    must hold none and the transcendental one some, or the compiler has
+    folded one variant into the other."""
+    out = {}
+    for name, part in sass_functions(path).items():
+        m = re.search(r"hot_loop_kernelILb([01])ELi(\d+)E", name)
+        if m:
+            out[f"{'transcend' if m.group(1) == '1' else 'poly'}_{m.group(2)}"] = {
+                "MUFU": part.count("MUFU."), "MUFU.EX2": part.count("MUFU.EX2"),
+                "MUFU.LG2": part.count("MUFU.LG2")}
+    if sorted(out) != ["poly_128", "poly_64", "transcend_128", "transcend_64"]:
+        raise AssertionError(f"hot-loop instantiations in the SASS: {sorted(out)}")
+    for k, v in out.items():
+        if k.startswith("poly") and v["MUFU"]:
+            raise AssertionError(f"the polynomial variant {k} holds MUFU instructions: {v}")
+        if k.startswith("transcend") and not v["MUFU.EX2"] + v["MUFU.LG2"]:
+            raise AssertionError(f"the transcendental variant {k} holds no MUFU.EX2/LG2: {v}")
+    return out
+
+
 def phase_build() -> dict:
     """One nvcc per kernel source, all started together; the GEMM's SASS
-    must hold wgmma (HGMMA) instructions."""
-    from gsdx_torch.kernels import composite, gnn_forward
+    must hold wgmma (HGMMA) instructions, and the hot-loop probe's SASS
+    MUFU instructions in its transcendental variant only."""
+    from gsdx_torch.kernels import composite, gnn_forward, probes
 
-    libs = (composite.LIBRARY, gnn_forward.LIBRARY, gnn_forward.GEMM_LIBRARY)
+    libs = (composite.LIBRARY, gnn_forward.LIBRARY, gnn_forward.GEMM_LIBRARY,
+            probes.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         logs = list(pool.map(lambda lib: lib.build(), libs))
     for lib in libs:
         lib.load()
-    sass = subprocess.run([cuobjdump(), "-sass", str(gnn_forward.GEMM_LIBRARY.path())],
-                          capture_output=True, text=True, check=True).stdout
-    gemm_sass = [part for part in sass.split("Function : ")[1:]
-                 if "gnn_gemm_kernel" in part.splitlines()[0]]
-    hgmma = sum(ln.count("HGMMA") for part in gemm_sass for ln in part.splitlines())
+    gemm_sass = [part for name, part in sass_functions(gnn_forward.GEMM_LIBRARY.path()).items()
+                 if "gnn_gemm_kernel" in name]
+    hgmma = sum(part.count("HGMMA") for part in gemm_sass)
     if not hgmma:
         raise AssertionError("no HGMMA instruction in the GEMM kernel's SASS")
     ptxas = ptxas_report(logs)
@@ -406,9 +463,11 @@ def phase_build() -> dict:
     return {"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
             "libraries": [lib.path().name for lib in libs],
             "ptxas": ptxas, "gemm_hgmma_instructions": hgmma,
+            "probe_mufu": mufu_counts(probes.LIBRARY.path()),
             "kernels": ["composite_fwd", "composite_fwd_presort",
                         "composite_bwd", "composite_bwd_presort",
-                        "gnn_linear", "gnn_gemm", "gnn_edge_first", "gnn_message"]}
+                        "gnn_linear", "gnn_gemm", "gnn_edge_first", "gnn_message",
+                        "hot_loop", "hot_loop_poly", "dynamic_roll"]}
 
 
 def check_forward(tf, counts, geo: dict, presort: bool, what: str):
@@ -544,6 +603,115 @@ def phase_kernels(clk_mhz: float) -> list[dict]:
 
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def load_tool(name: str):
+    """tools/<name>.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, os.path.join(REPO, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def close_to_largest(a, b, share) -> dict:
+    """`tests/test_torch_probes.py` `_close_to_largest`: all but ``share``
+    of the entries that are non-zero in ``b`` within 1e-5 of the output's
+    largest magnitude, every entry within 2e-2 (one f32 rounding can carry
+    an alpha across the 1/255 cut; on the probe's data, where the falloff's
+    terms of ~1e7 cancel, often). Returns the largest |a - b|, its share of
+    the largest entry, the entries off by more than 1e-5 of it and the
+    non-zero entries."""
+    err = (a.double() - b.double()).abs()
+    rel = err / max(float(b.abs().max()), 1.0)
+    out = {"max_abs_err": float(err.max()), "max_rel_largest": float(rel.max()),
+           "entries_above_1e-5": int((rel > 1e-5).sum()), "entries": rel.numel(),
+           "nonzero": int((b != 0).sum())}
+    if out["max_rel_largest"] > 2e-2 or out["entries_above_1e-5"] > share * out["nonzero"]:
+        raise AssertionError(f"hot loop vs plain: {out}")
+    return out
+
+
+def phase_probes(clk_mhz: float) -> tuple[dict, list[dict]]:
+    """Kernels #4 and #5 against their plain versions, then their probe
+    paths (tools/dynamic_roll_probe.py, the A/B of
+    tools/transcendental_probe.py) with the launch counters set to 0 just
+    before and read just after."""
+    from gsdx_torch.kernels import probes as PR
+
+    # kernel #5: bit-equal to torch.roll at every shift, any sign or size
+    x = torch.randn(8, 512, device="cuda")
+    for shift in (0, 3, 130, 511, -1, 515):
+        s = torch.tensor([shift], dtype=torch.int32, device="cuda")
+        if not torch.equal(PR.dynamic_roll(x, s), torch.roll(x, shift, dims=1)):
+            raise AssertionError(f"dynamic_roll differs from torch.roll at shift {shift}")
+    s = torch.tensor([130], dtype=torch.int32, device="cuda")
+    roll = {"name": "dynamic_roll", "R": 8, "W": 512, "max_abs_err": 0.0,
+            "ms": cuda_ms_back_to_back(lambda: PR.dynamic_roll(x, s), reps=200),
+            "plain_ms": cuda_ms_back_to_back(lambda: PR.dynamic_roll_plain(x, s), reps=200),
+            "library_ms": cuda_ms_back_to_back(lambda: torch.roll(x, 130, dims=1), reps=200),
+            "device_ms": kernel_device_ms(lambda: PR.dynamic_roll(x, s), r"roll_kernel"),
+            "library_device_ms": kernel_device_ms(lambda: torch.roll(x, 130, dims=1), r"roll")}
+    roll["bound_ms"], roll["bound_by"] = bound_ms(2 * 8 * 512 * 4 + 4, 0, 0, clk_mhz)
+
+    # kernel #4 at the probe's shape, both variants, sub 64 and 128, on the
+    # probe's data and on splats that cover every pixel (the share of
+    # non-zero entries that may be off by more than 1e-5: the test's)
+    tp = load_tool("transcendental_probe")
+    checks = {}
+    for sub in tp.SUBS:
+        for v in tp.VARIANTS:
+            for data, share in (("dense", 1e-3), ("probe", 0.02)):
+                feats, counts = (tp.dense_inputs if data == "dense" else tp.probe_inputs)(sub)
+                got = PR.composite_hot_loop(feats, counts, sub, v)
+                want = PR.composite_hot_loop_plain(feats, counts, sub, v)
+                torch.cuda.synchronize()
+                diffs = [close_to_largest(a, b, share) for a, b in zip(got, want)]
+                emit({"phase": "probes_check", "data": data, "sub": sub, "transcend": v,
+                      "accum": diffs[0], "logt": diffs[1]})
+            # the kernel line's error and times: the probe's data
+            checks[(sub, v)] = {
+                "max_abs_err": max(d["max_abs_err"] for d in diffs),
+                "ms": cuda_ms(lambda: PR.composite_hot_loop(feats, counts, sub, v)),
+                "plain_ms": cuda_ms(lambda: PR.composite_hot_loop_plain(feats, counts, sub, v),
+                                    reps=3, warmup=1)}
+
+    # the probe paths, counted
+    PR.reset_launches()
+    if not load_tool("dynamic_roll_probe").run("cuda"):
+        raise AssertionError("tools/dynamic_roll_probe.py: a shift did not match np.roll")
+    ab = [tp.ab(sub, clk_mhz) for sub in tp.SUBS]
+    launches = dict(PR.LAUNCHES)
+    for k, n in launches.items():
+        if not n:
+            raise AssertionError(f"the probe paths launched no {k} kernel")
+    for r in ab:
+        emit(dict(r, phase="probes_ab"))
+    rows = [dict(roll, launches=launches["dynamic_roll"])]
+    for v in tp.VARIANTS:
+        name = "transcend" if v else "poly"
+        main = ab[0]  # sub 64, kernel #1's granule at 720p
+        c = checks[(64, v)]
+        rows.append({
+            "name": "probe_transcendental" + ("" if v else "_poly"), "sub": 64,
+            "launches": launches["hot_loop" if v else "hot_loop_poly"],
+            "max_abs_err": max(checks[(sub, v)]["max_abs_err"] for sub in tp.SUBS),
+            "ms": c["ms"], "device_ms": main[f"device_ms_{name}"],
+            "plain_ms": c["plain_ms"], "bound_ms": main[f"bound_ms_{name}"],
+            "bound_by": main[f"bound_by_{name}"], "library_ms": None,
+            "sub128": {"ms": checks[(128, v)]["ms"], "plain_ms": checks[(128, v)]["plain_ms"],
+                       "device_ms": ab[1][f"device_ms_{name}"],
+                       "bound_ms": ab[1][f"bound_ms_{name}"]}})
+    out = {"phase": "probes", "launches": launches,
+           "transcendental_share": {f"sub{r['sub']}": r["transcendental_share"] for r in ab},
+           "us_per_granule": {f"sub{r['sub']}": {"transcend": r["us_per_granule_transcend"],
+                                                "poly": r["us_per_granule_poly"]} for r in ab},
+           "kernels": rows}
+    emit(out)
+    return out, rows
+
+
 ROPE_CKPT = os.path.join(REPO, "benchmarks/out/generalization/checkpoints/latest.ckpt")
 TRAJ = os.path.join(REPO, "benchmarks/out/pipeline/ckpts/param_downsampled.npy")
 # The GNN kernels round the same product operands to bf16 as
@@ -1961,6 +2129,285 @@ def phase_learn_cli() -> dict:
     return row
 
 
+# --------------------------------------------------------------------------
+# the real-robot path: reference check, masks app, plan --env real
+# --------------------------------------------------------------------------
+
+
+def phase_reference() -> dict:
+    """The port's `rasterize` (kernels #1 and #2) against the dense
+    `render_reference` on tests/test_rasterize.py's 120-Gaussian 40x64 scene:
+    values within its tolerances (:50-53), gradients within 5e-4 of each
+    input's largest (:95)."""
+    from gsdx_torch.core.cameras import make_camera
+    from gsdx_torch.kernels import composite as C
+    from gsdx_torch.render.rasterize import RasterizeConfig, rasterize
+    from gsdx_torch.render.reference import render_reference
+
+    h, w = 40, 64
+    rng = np.random.default_rng(0)
+    means = rng.uniform(-0.5, 0.5, size=(120, 3)).astype(np.float32)
+    means[:, 2] += 3.0
+    arrays = (means, rng.normal(size=(120, 4)), rng.uniform(0.02, 0.08, size=(120, 3)),
+              rng.uniform(0.2, 0.95, size=(120, 1)), rng.uniform(0, 1, size=(120, 3)),
+              np.zeros((120, 2)))
+    k = np.array([[60.0, 0, w / 2], [0, 60.0, h / 2], [0, 0, 1]], np.float32)
+    cam = make_camera(k, np.eye(4, dtype=np.float32), width=w, height=h,
+                      bg=(0.3, 0.1, 0.6), device="cuda")
+    target = torch.as_tensor(rng.uniform(0, 1, size=(3, h, w)).astype(np.float32), device="cuda")
+    cfg = RasterizeConfig(tile_h=8, tile_w=128, max_per_tile=256, max_dup=32)
+    outs, grads = [], []
+    C.reset_launches()
+    for fn in ("rasterize", "reference"):
+        args = [torch.tensor(np.asarray(a, np.float32), device="cuda", requires_grad=True)
+                for a in arrays]
+        if fn == "rasterize":
+            o = rasterize(*args[:5], cam, cfg, mean2d_offset=args[5])
+            im, depth, final_t, radius = o.im, o.depth, o.final_t, o.radius
+        else:
+            im, radius, depth, final_t = render_reference(*args[:5], cam, mean2d_offset=args[5],
+                                                          strict_t_stop=False)
+        loss = (im - target).abs().mean() + 0.1 * depth.abs().mean()
+        grads.append(torch.autograd.grad(loss, args))
+        outs.append((im.detach(), depth.detach(), final_t.detach(), radius.detach()))
+    if not (C.LAUNCHES["fwd"] and C.LAUNCHES["bwd"]):
+        raise AssertionError(f"rasterize ran no compositor kernel: {C.LAUNCHES}")
+    row = {"phase": "reference", "n": 120, "h": h, "w": w}
+    for name, a, b, tol in zip(("im", "depth", "final_t"), outs[0], outs[1], (2e-5, 1e-4, 2e-5)):
+        torch.testing.assert_close(a, b, rtol=0, atol=tol)
+        row[f"{name}_max_abs_err"] = float((a - b).abs().max())
+    if not torch.equal(outs[0][3], outs[1][3]):
+        raise AssertionError("rasterize and the reference disagree on the radii")
+    for name, gp, gr in zip(("means3d", "quats", "scales", "opacities", "colors", "mean2d"),
+                            *grads):
+        scale = float(gr.abs().max()) + 1e-8
+        torch.testing.assert_close(gp / scale, gr / scale, rtol=0, atol=5e-4)
+        row[f"grad_{name}_max_rel_err"] = float((gp - gr).abs().max()) / scale
+    emit(row)
+    return row
+
+
+MASK_CAMS, MASK_FRAMES, MASK_W, MASK_H = 4, 3, 1280, 720
+
+
+def write_mask_episode(root: str):
+    """A synthetic recording in the layout `apps/masks.py` reads, written by
+    the port's PNG writer: per camera 8-bit colour frames of a red rope-like
+    patch on the grey table (the threshold segmenter's background) and
+    16-bit depth in mm of the table 0.8 m below cameras looking straight
+    down, spread 5 cm apart in x; a calibration pickle. Returns its path."""
+    import pickle
+
+    from gsdx_torch.io.video import write_image
+
+    n_cams, n_frames, width, height = MASK_CAMS, MASK_FRAMES, MASK_W, MASK_H
+    f = 0.75 * width
+    k = np.array([[f, 0, width / 2], [0, f, height / 2], [0, 0, 1]], np.float32)
+    rng = np.random.default_rng(0)
+    for c in range(n_cams):
+        for t in range(n_frames):
+            img = np.full((height, width, 3), 178, np.uint8)
+            x0 = width // 2 - width // 8 + 4 * t - 40 * c
+            img[height // 2 - height // 30:height // 2 + height // 30, x0:x0 + width // 4] = \
+                (200, 30, 30)
+            depth = (800 + rng.integers(-2, 3, size=(height, width))).astype(np.uint16)
+            write_image(os.path.join(root, f"camera_{c}", f"color_{t:06d}.png"), img)
+            write_image(os.path.join(root, f"camera_{c}", "depth", f"depth_{t:06d}.png"), depth)
+    R = np.diag([1.0, -1.0, -1.0])
+    calib = {"intrinsics": np.stack([k] * n_cams), "R_cam2world": np.stack([R] * n_cams),
+             "t_cam2world": np.stack([[0.3 + 0.05 * c, 0.05, 0.8] for c in range(n_cams)])}
+    path = os.path.join(root, "calib.pkl")
+    with open(path, "wb") as fh:
+        pickle.dump(calib, fh)
+    return path
+
+
+def phase_masks() -> dict:
+    """The masks app on a synthetic 4-camera 1280x720 3-frame episode in a
+    temporary directory: `python -m gsdx_torch.apps.masks obtain` on the
+    card in a process of its own, then merge, initpcd (on the card) and
+    metadata through the same `main` in this process (a fresh interpreter
+    took 8-14 s a subcommand on the H100's host, most of the phase); then
+    `build_init_pcd` on the CPU: the two initial clouds must be the same
+    point set within 1e-6 m."""
+    from scipy.spatial import cKDTree
+
+    from gsdx_torch.apps import masks
+    from gsdx_torch.io.video import read_png
+
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        calib = write_mask_episode(root)
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        seconds = {"write": time.perf_counter() - t_start}
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "gsdx_torch.apps.masks", "obtain",
+                        "--data_path", root, "--device", "cuda"], check=True, cwd=root, env=env)
+        seconds["obtain_process"] = time.perf_counter() - t0
+        for argv in (["merge"], ["initpcd", "--calib", calib, "--device", "cuda"],
+                     ["metadata", "--calib", calib]):
+            t0 = time.perf_counter()
+            masks.main(argv + ["--data_path", root])
+            torch.cuda.synchronize()
+            seconds[argv[0]] = time.perf_counter() - t0
+        seg = read_png(os.path.join(root, "camera_0", "seg", "seg_000002.png"))
+        fg = read_png(os.path.join(root, "camera_0", "foreground", "fg_000002.png"))
+        if seg.shape != (MASK_H, MASK_W) or not seg.any() or seg[0, 0]:
+            raise AssertionError("the masks app's object mask is empty or covers the table")
+        if fg[0, 0].any() or fg.shape != (MASK_H, MASK_W, 3):
+            raise AssertionError("the masks app's foreground keeps the table")
+        with open(os.path.join(root, "train_meta.json")) as fh:
+            meta = json.load(fh)
+        if (meta["w"], meta["h"], len(meta["fn"]), len(meta["fn"][0])) != \
+                (MASK_W, MASK_H, MASK_FRAMES, MASK_CAMS):
+            raise AssertionError(f"train_meta.json: {meta['w']}x{meta['h']}, {len(meta['fn'])} "
+                                 "frames")
+        card = np.load(os.path.join(root, "init_pt_cld.npz"))["data"]
+        t0 = time.perf_counter()
+        cpu = masks.build_init_pcd(root, calib, device="cpu")
+        seconds["initpcd_cpu"] = time.perf_counter() - t0
+    if card.shape != cpu.shape or not np.isfinite(card).all() or len(card) == 0:
+        raise AssertionError(f"init clouds: card {card.shape}, CPU {cpu.shape}")
+    d_card, _ = cKDTree(cpu[:, :3]).query(card[:, :3], k=1)
+    d_cpu, _ = cKDTree(card[:, :3]).query(cpu[:, :3], k=1)
+    gap = float(max(d_card.max(), d_cpu.max()))
+    if gap > 1e-6:
+        raise AssertionError(f"the card's init cloud lies {gap} m from the CPU's")
+    row = {"phase": "masks", "width": MASK_W, "height": MASK_H, "cameras": MASK_CAMS,
+           "frames": MASK_FRAMES, "init_points": len(card),
+           "object_points": int((card[:, 6] > 0.5).sum()), "card_vs_cpu_m": gap,
+           "seconds": seconds}
+    emit(row)
+    return row
+
+
+REAL_CAMS, REAL_W, REAL_H, REAL_SAMPLES = 4, 640, 480, 1000
+
+
+def static_table_views():
+    """`StaticImageSource` views of a red patch on the grey table from 1 m
+    above (tests/test_plan_real_env.py's scene at the RealSense stream
+    size): with R = diag(1, -1, -1), t = (0.3, 0.05, 1.0) the camera's
+    (x, y, 1) lands on the table at world (0.3 + x, 0.05 - y, 0), inside
+    `WORKSPACE_BBOX`. The patch is 24 x 7.5 cm."""
+    from gsdx_torch.realworld.cameras import StaticImageSource
+
+    n, width, height = REAL_CAMS, REAL_W, REAL_H
+    color = np.full((height, width, 3), int(0.7 * 255), np.uint8)
+    color[height // 2 - 18:height // 2 + 18, width // 2 - 58:width // 2 + 58] = (220, 40, 30)
+    depth = np.full((height, width), 1000, np.uint16)
+    R, t = np.diag([1.0, -1.0, -1.0]), np.array([0.3, 0.05, 1.0])
+    return [StaticImageSource(color, depth, fps=30) for _ in range(n)], [R] * n, [t] * n
+
+
+def phase_real_env() -> dict:
+    """`apps/plan.py` `main --env real --cameras synthetic:4 --robot_ip fake
+    --n_actions 2 --n_chunks 1` at rope width with the trained checkpoint,
+    in a temporary working directory, its cameras `static_table_views`. The
+    fused GNN kernel must launch, `RealEnv.step` run twice with finite
+    (4,) actions, the interaction files be written and every camera
+    process be joined after `env.stop()`. Prints each robot action's
+    seconds split into get_obs, perception, planning and step, and each
+    camera's put rate while the planner ran."""
+    import gsdx_torch.realworld.cameras as cams
+    from gsdx_torch.apps import plan
+    from gsdx_torch.kernels import gnn_forward as G
+    from gsdx_torch.plan.planner import Planner
+    from gsdx_torch.realworld.perception import PerceptionModule
+
+    sources, R_list, t_list = static_table_views()
+    events = {"get_obs": [], "perception": [], "planning": [], "step": []}
+    rates, steps, envs = [], [], []
+
+    def timed_call(kind, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            events[kind].append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    orig_make, orig_source = plan.make_real_env, cams.SyntheticSource
+    orig_plan, orig_perceive = Planner.plan_chunked, PerceptionModule.get_tabletop_points
+
+    def make(*a, **kw):
+        env = orig_make(*a, **kw)
+        env.R_cam2world, env.t_cam2world = list(R_list), list(t_list)
+        env.get_obs = timed_call("get_obs", env.get_obs)
+        step = timed_call("step", env.step)
+
+        def counting_step(action, decoded=True):
+            steps.append(np.asarray(action))
+            return step(action, decoded)
+
+        env.step = counting_step
+        envs.append(env)
+        return env
+
+    def plan_chunked(self, *a, **kw):
+        rings = [c.ring_buffer for c in envs[0].cameras.cameras]
+        n0, t0 = [r.count for r in rings], time.perf_counter()
+        out = timed_call("planning", orig_plan)(self, *a, **kw)
+        dt = time.perf_counter() - t0
+        rates.append([(r.count - n) / dt for r, n in zip(rings, n0)])
+        return out
+
+    t_start = time.perf_counter()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_dir = os.path.join(tmp, "log", "rope", "checkpoints")
+        os.makedirs(ckpt_dir)
+        os.symlink(ROPE_CKPT, os.path.join(ckpt_dir, "latest.ckpt"))
+        plan.make_real_env, cams.SyntheticSource = make, lambda seed=0, **kw: sources[seed]
+        Planner.plan_chunked = plan_chunked
+        PerceptionModule.get_tabletop_points = timed_call("perception", orig_perceive)
+        G.reset_launches()
+        try:
+            os.chdir(tmp)
+            plan.main(["--config", os.path.join(REPO, "configs", "rope.yaml"),
+                       "--env", "real", "--cameras", f"synthetic:{REAL_CAMS}",
+                       "--robot_ip", "fake", "--n_actions", "2", "--n_chunks", "1",
+                       "--n_sample", str(REAL_SAMPLES), "--out", "out", "--device", "cuda"])
+        finally:
+            os.chdir(cwd)
+            plan.make_real_env, cams.SyntheticSource = orig_make, orig_source
+            Planner.plan_chunked, PerceptionModule.get_tabletop_points = orig_plan, orig_perceive
+        launches = dict(G.LAUNCHES)
+        out = os.path.join(tmp, "out")
+        written = sorted(os.listdir(out))
+        recs = [np.load(os.path.join(out, f"interaction_{i}.npz")) for i in range(2)]
+        recs = [{k: r[k].tolist() for k in ("action", "reward", "chamfer_before",
+                                             "chamfer_after")} for r in recs]
+    if not launches["gnn_forward"]:
+        raise AssertionError(f"plan --env real launched no fused GNN forward: {launches}")
+    if len(steps) != 2 or not all(a.shape == (4,) and np.isfinite(a).all() for a in steps):
+        raise AssertionError(f"RealEnv.step calls: {steps}")
+    if not {"interaction_0.npz", "interaction_1.npz", "stats.txt"} <= set(written):
+        raise AssertionError(f"plan --env real wrote {written}")
+    alive = [c.name for c in envs[0].cameras.cameras if c.is_alive() or c.exitcode != 0]
+    if alive:
+        raise AssertionError(f"camera processes not joined cleanly after env.stop(): {alive}")
+    # events: one get_obs + perception to set up, then per action one
+    # before the plan and one after the push
+    actions = []
+    for i in range(2):
+        a = {"get_obs": sum(events["get_obs"][1 + 2 * i:3 + 2 * i]),
+             "perception": sum(events["perception"][1 + 2 * i:3 + 2 * i]),
+             "planning": events["planning"][i], "step": events["step"][i]}
+        a["total"] = sum(a.values())
+        actions.append(a)
+    row = {"phase": "real_env", "cameras": REAL_CAMS, "width": REAL_W, "height": REAL_H,
+           "n_sample": REAL_SAMPLES, "n_chunks": 1, "n_actions": 2,
+           "launches": launches, "actions_s": actions,
+           "setup_get_obs_s": events["get_obs"][0], "setup_perception_s": events["perception"][0],
+           "put_hz_while_planning": rates, "interactions": recs,
+           "seconds": time.perf_counter() - t_start}
+    emit(row)
+    return row
+
+
 def tree_state() -> dict:
     """(size, mtime) of every file of the checkout that git would see: all
     but `.git` and what `.gitignore` lists (the kernel build among it)."""
@@ -2011,6 +2458,7 @@ def main() -> int:
     emit(timed("build", phase_build))
     rows = timed("kernels", phase_kernels, info["max_sm_mhz"])
     gnn_rows = timed("gnn_kernels", phase_gnn_kernels)
+    _, probe_rows = timed("probes", phase_probes, info["max_sm_mhz"])
     timed("rasterize", phase_rasterize, card)
     slice_row = timed("slice", phase_slice, card)
     plan_row = timed("plan", phase_plan, card)
@@ -2025,6 +2473,9 @@ def main() -> int:
     timed("cli_plan", phase_plan_cli)
     timed("cli_learn", phase_learn_cli)
     timed("cli_online", phase_online_cli)
+    timed("reference", phase_reference)
+    timed("masks", phase_masks)
+    timed("real_env", phase_real_env)
     emit({"phase": "seconds", **seconds})
     after = tree_state()
     changed = sorted(p for p in set(before) | set(after) if before.get(p) != after.get(p))
@@ -2074,6 +2525,12 @@ def main() -> int:
         "max_abs_err": gemm["max_abs_err"], "ms": gemm["ms"],
         "plain_ms": gemm["plain_ms"], "bound_ms": gemm["bound_ms"],
         "bound_by": gemm["bound_by"], "library_ms": gemm["library_ms"]})
+    for r in probe_rows:
+        roll = r["name"] == "dynamic_roll"
+        table.append(dict(
+            r, route="cuda", source="gsdx_torch/csrc/probes.cu",
+            replaces=("benchmarks/probe_dynamic_roll.py:10" if roll
+                      else "benchmarks/probe_transcendental.py:48")))
     print(info["nvidia_smi"], flush=True)
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,12 +2,17 @@
 
 Runs perceive -> plan -> execute for n_actions pushes, logging the chamfer
 distance to the target cloud, against the simulated environment
-(`--env fake`). Real hardware (`--env real`) waits for the port of
-`realworld/`'s cameras and robot. The trained model is read from
-`<train_config.out_dir>/checkpoints/<epoch>.ckpt`, relative to the working
-directory. Resumable from the saved interaction files.
+(`--env fake`) or the hardware stack (`--env real`: capture processes ->
+shared-memory ring buffers -> `RealEnv` -> perception -> MPPI -> the arm's
+push choreography), with synthetic or RealSense cameras (`--cameras`) and a
+fake or xArm7 arm (`--robot_ip`; a real arm needs `--calibration`). The
+trained model is read from `<train_config.out_dir>/checkpoints/<epoch>.ckpt`,
+relative to the working directory. Resumable from the saved interaction
+files.
 
     python -m gsdx_torch.apps.plan --config configs/rope.yaml --env fake
+    python -m gsdx_torch.apps.plan --config configs/rope.yaml --env real \
+        --cameras synthetic:4 --robot_ip fake
 """
 
 from __future__ import annotations
@@ -42,6 +47,39 @@ def chamfer_np(x, y):
     return d.min(1).mean() + d.min(0).mean()
 
 
+def make_real_env(cameras: str, robot_ip: str, calibration: str | None,
+                  capture_fps: float = 15.0, device="cuda"):
+    """Compose RealEnv(MultiCamera, arm) for the closed loop
+    (`src/real_world/plan.py:218-235`).
+
+    cameras: "synthetic" / "synthetic:N" (test sources), or comma-separated
+    RealSense serial numbers. robot_ip: "fake" or an xArm7 IP. A missing
+    calibration is an error with a real robot (world<->base transforms would
+    be garbage); with a fake arm it falls back to identity extrinsics.
+    """
+    from gsdx_torch.realworld.cameras import RealSenseSource, SyntheticSource
+    from gsdx_torch.realworld.real_env import RealEnv
+    from gsdx_torch.realworld.robot import FakeArm, XArm7
+
+    if cameras.startswith("synthetic"):
+        n = int(cameras.split(":")[1]) if ":" in cameras else 4
+        sources = [SyntheticSource(seed=i) for i in range(n)]
+    else:
+        sources = [RealSenseSource(s.strip()) for s in cameras.split(",")]
+    real_arm = robot_ip not in ("fake", "", None)
+    arm = XArm7(robot_ip) if real_arm else FakeArm()
+    env = RealEnv(sources, arm=arm, capture_fps=capture_fps,
+                  calibration_path=calibration, device=device)
+    if not env.R_cam2world:
+        if real_arm:
+            env.cameras.shm_manager.shutdown()
+            raise RuntimeError(
+                "real robot requires --calibration (run gsdx_torch.apps.calibrate)")
+        env.R_cam2world = [np.eye(3) for _ in sources]
+        env.t_cam2world = [np.zeros(3) for _ in sources]
+    return env
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--config", required=True)
@@ -55,6 +93,12 @@ def main(argv=None):
     p.add_argument("--out", default="out/plan")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--seed", type=int, default=43)
+    p.add_argument("--cameras", default="synthetic:4",
+                   help="'synthetic[:N]' or comma-separated RealSense serials")
+    p.add_argument("--robot_ip", default="fake",
+                   help="'fake' or the xArm7 IP address")
+    p.add_argument("--calibration", default=None,
+                   help="calibration pickle (cam/base -> world transforms)")
     p.add_argument("--prompt", default="object",
                    help="perception text prompt (grounded-SAM when available)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -62,26 +106,35 @@ def main(argv=None):
 
     from gsdx_torch.core.device import require_device
     from gsdx_torch.io.checkpoint import load_trained_model
+    from gsdx_torch.realworld.env import FakeEnv
+
+    device = require_device(args.device)
+    train_cfg, data_cfg, model = load_trained_model(args.config, args.epoch, device)
+
+    if args.env == "fake":
+        rng = np.random.default_rng(args.seed)
+        pts = rng.normal(scale=0.03, size=(400, 3)).astype(np.float32)
+        pts += np.array([0.3, 0.0, 0.0], np.float32)
+        cols = np.tile(np.array([0.9, 0.2, 0.1], np.float32), (400, 1))
+        env = FakeEnv(pts, cols, device=device)
+    else:
+        env = make_real_env(args.cameras, args.robot_ip, args.calibration, device=device)
+    env.start()
+    try:
+        _closed_loop(args, env, train_cfg, data_cfg, model, device)
+    finally:
+        env.stop()
+
+
+def _closed_loop(args, env, train_cfg, data_cfg, model, device):
+    """Perceive -> plan -> execute ``args.n_actions`` pushes on ``env``."""
     from gsdx_torch.plan.cost import running_cost
     from gsdx_torch.plan.dynamics_rollout import RolloutSpec, make_batched_rollout
     from gsdx_torch.plan.planner import MPPIConfig, Planner
-    from gsdx_torch.realworld.env import WORKSPACE_BBOX, FakeEnv
+    from gsdx_torch.realworld.env import WORKSPACE_BBOX
     from gsdx_torch.realworld.perception import PerceptionModule
     from gsdx_torch.realworld.segmentation import make_segmenter
 
-    device = require_device(args.device)
-    if args.env == "real":
-        raise NotImplementedError(
-            "--env real needs the cameras and robot of realworld/, which are "
-            "not ported yet; use --env fake")
-    train_cfg, data_cfg, model = load_trained_model(args.config, args.epoch, device)
-
-    rng = np.random.default_rng(args.seed)
-    pts = rng.normal(scale=0.03, size=(400, 3)).astype(np.float32)
-    pts += np.array([0.3, 0.0, 0.0], np.float32)
-    cols = np.tile(np.array([0.9, 0.2, 0.1], np.float32), (400, 1))
-    env = FakeEnv(pts, cols, device=device)
-    env.start()
     pm = PerceptionModule(segmenter=make_segmenter(), device=device)
 
     fps_radius = sum(data_cfg.fps_radius_range) / 2
@@ -141,7 +194,6 @@ def main(argv=None):
                  reward=reward)
         print(f"interaction {i}: chamfer {cd_before:.4f} -> {cd_after:.4f} "
               f"(reward {reward:.4f})")
-    env.stop()
     with open(os.path.join(args.out, "stats.txt"), "w") as f:
         f.write(f"final chamfer: {chamfers[-1] if chamfers else 'n/a'}\n")
 

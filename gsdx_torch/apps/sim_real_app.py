@@ -17,9 +17,9 @@ otherwise headless:
         --env fake --clicks x1,y1,x2,y2 [--run-real] [--save-for-demo] \\
         [--device cuda]
 
-``--env real`` needs the port of the hardware stack (cameras, robot,
-calibration: the hardware-stack item of ROADMAP.md's first queue) and is
-refused.
+``--env real`` runs on the hardware stack (`apps/plan.py` `make_real_env`):
+``--cameras synthetic[:N]`` or RealSense serials, ``--robot_ip fake`` or an
+xArm7 address (which needs ``--calibration``).
 """
 
 from __future__ import annotations
@@ -193,6 +193,9 @@ def main(argv=None):
     p.add_argument("--config", required=True)
     p.add_argument("--epoch", default="latest")
     p.add_argument("--env", default="fake", choices=["fake", "real"])
+    p.add_argument("--cameras", default="synthetic:4")
+    p.add_argument("--robot_ip", default="fake")
+    p.add_argument("--calibration", default=None)
     p.add_argument("--out", default="out/sim_real")
     p.add_argument("--gs_iters", type=int, default=None)
     p.add_argument("--clicks", default=None,
@@ -209,13 +212,13 @@ def main(argv=None):
     from gsdx_torch.core.device import require_device
     from gsdx_torch.realworld.env import FakeEnv
 
-    if args.env == "real":
-        raise NotImplementedError(
-            "--env real needs the cameras, robot and calibration of realworld/ "
-            "(the hardware stack, ROADMAP.md's first queue), which are not "
-            "ported yet; use --env fake")
     device = require_device(args.device)
-    env = FakeEnv(*rope_points(args.seed), device=device)
+    if args.env == "fake":
+        env = FakeEnv(*rope_points(args.seed), device=device)
+    else:
+        from gsdx_torch.apps.plan import make_real_env
+
+        env = make_real_env(args.cameras, args.robot_ip, args.calibration, device=device)
     env.start()
     try:
         session = SimRealSession(

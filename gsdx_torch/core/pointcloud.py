@@ -1,7 +1,7 @@
-"""Point-cloud filters on the device (counterpart of
-`gsdx/core/pointcloud.py:22-108`): voxel downsampling and statistical /
-radius outlier removal, fixed shape with masks instead of compaction.
-`depth2fgpcd` and `segment_plane` are still to port.
+"""Point-cloud geometry on the device (counterpart of
+`gsdx/core/pointcloud.py`): voxel downsampling and statistical / radius
+outlier removal, fixed shape with masks instead of compaction; depth
+unprojection (`depth2fgpcd`) and a RANSAC plane fit (`segment_plane`).
 """
 
 from __future__ import annotations
@@ -22,7 +22,9 @@ def voxel_downsample(points: torch.Tensor, voxel_size: float, max_points: int,
     increasing voxel-id order; voxels beyond max_points are dropped. gsdx
     sorts on a pair of int32 keys (x * GRID + y, z) because GRID^3 does not
     fit int32; here the pair is one int64 key under a stable sort, the
-    same order.
+    same order. Each voxel's sum is taken in float64, so the mean does not
+    depend on the order of the card's atomic adds (an f32 sum of a dense
+    voxel of a 720p view parts by ~1e-6 m between two orders).
     """
     n = points.shape[0]
     if valid is None:
@@ -42,12 +44,12 @@ def voxel_downsample(points: torch.Tensor, voxel_size: float, max_points: int,
     seg = torch.cumsum(new_vox.to(torch.int64), 0) - 1  # voxel rank
     seg = torch.where(valid_s & (seg < max_points), seg,
                       torch.full_like(seg, max_points))  # spare row
-    sums = torch.zeros((max_points + 1, 3), dtype=points.dtype, device=points.device)
-    sums.index_add_(0, seg, pts_s * valid_s[:, None])
-    cnts = torch.zeros(max_points + 1, dtype=points.dtype, device=points.device)
-    cnts.index_add_(0, seg, valid_s.to(points.dtype))
+    sums = torch.zeros((max_points + 1, 3), dtype=torch.float64, device=points.device)
+    sums.index_add_(0, seg, pts_s.double() * valid_s[:, None])
+    cnts = torch.zeros(max_points + 1, dtype=torch.float64, device=points.device)
+    cnts.index_add_(0, seg, valid_s.double())
     sums, cnts = sums[:max_points], cnts[:max_points]
-    return sums / torch.clamp(cnts[:, None], min=1.0), cnts > 0
+    return (sums / torch.clamp(cnts[:, None], min=1.0)).to(points.dtype), cnts > 0
 
 
 def statistical_outlier_mask(points: torch.Tensor, nb_neighbors: int,
@@ -93,3 +95,45 @@ def iterative_statistical_outliers(points, nb_neighbors: int = 50,
             break
         valid = new_valid
     return np.nonzero(valid.cpu().numpy())[0]
+
+
+def depth2fgpcd(depth: torch.Tensor, mask: torch.Tensor, k: torch.Tensor):
+    """Unproject a masked depth map to camera-frame points
+    (`src/real_world/utils/pcd_utils.py` depth2fgpcd). Returns (H*W, 3)
+    points with a validity mask (fixed shape)."""
+    H, W = depth.shape
+    fx, fy, cx, cy = k[0, 0], k[1, 1], k[0, 2], k[1, 2]
+    ys, xs = torch.meshgrid(torch.arange(H, device=depth.device),
+                            torch.arange(W, device=depth.device), indexing="ij")
+    z = depth
+    x = (xs - cx) * z / fx
+    y = (ys - cy) * z / fy
+    pts = torch.stack([x, y, z], -1).reshape(-1, 3)
+    valid = (mask.bool() & (depth > 0)).reshape(-1)
+    return pts, valid
+
+
+def segment_plane(points: torch.Tensor, dist_thresh: float,
+                  generator: torch.Generator | None = None,
+                  valid: torch.Tensor | None = None, n_iters: int = 256,
+                  idx: torch.Tensor | None = None):
+    """RANSAC plane fit (Open3D's `segment_plane`): returns (plane (4,),
+    inlier mask). ``n_iters`` candidate triplets, drawn uniformly from the
+    points with ``generator`` (or given as ``idx`` (n_iters, 3)), are
+    scored in one batch; the first with the most inliers wins."""
+    n = points.shape[0]
+    if valid is None:
+        valid = torch.ones(n, dtype=torch.bool, device=points.device)
+    if idx is None:
+        idx = torch.randint(0, n, (n_iters, 3), generator=generator,
+                            device=generator.device if generator is not None else "cpu")
+    idx = idx.to(points.device).long()
+    p0, p1, p2 = (points[idx[:, i]] for i in range(3))
+    normal = torch.linalg.cross(p1 - p0, p2 - p0)
+    normal = normal / torch.clamp(torch.linalg.norm(normal, dim=-1, keepdim=True), min=1e-9)
+    d = -torch.sum(normal * p0, -1)  # (n_iters,)
+    dist = torch.abs(points @ normal.T + d[None, :])  # (n, n_iters)
+    inl = (dist <= dist_thresh) & valid.bool()[:, None]
+    best = int(torch.argmax(inl.sum(0)))  # first of the largest, as jnp.argmax
+    plane = torch.cat([normal[best], d[best][None]])
+    return plane, inl[:, best]

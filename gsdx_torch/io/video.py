@@ -3,7 +3,8 @@
 gsdx encodes mp4 or GIF through imageio and reads images through PIL. The
 port writes each frame as a PNG with its own encoder and reads PNGs with
 its own decoder (`zlib` and `struct` of the standard library), so it needs
-no imaging package. Both handle 8-bit gray, RGB and RGBA without
+no imaging package. Both handle 8-bit gray, RGB and RGBA and 16-bit gray
+(big-endian samples: how RealSense depth in millimetres is stored) without
 interlacing; the encoder writes one filter-0 scanline a row, the decoder
 undoes all five scanline filters.
 """
@@ -31,21 +32,27 @@ def _to_uint8(im) -> np.ndarray:
 
 def encode_png(im) -> bytes:
     """PNG bytes of an (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA image,
-    float in [0, 1] or uint8."""
-    im = _to_uint8(im)
+    float in [0, 1] or uint8; an (H, W) uint16 image is written as 16-bit
+    gray."""
+    im = np.asarray(im)
+    depth = 16 if im.dtype == np.uint16 and im.ndim == 2 else 8
+    if depth == 8:
+        im = _to_uint8(im)
     channels = 1 if im.ndim == 2 else (im.shape[2] if im.ndim == 3 else 0)
     if channels not in _COLOR_TYPE:
         raise ValueError(f"expected an (H, W), (H, W, 3) or (H, W, 4) image, "
                          f"got {im.shape}")
     h, w = im.shape[:2]
+    samples = im.astype(">u2") if depth == 16 else im  # big-endian samples
 
     def chunk(kind: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + kind + data
                 + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), im.reshape(h, w * channels)], 1)
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           np.ascontiguousarray(samples).view(np.uint8).reshape(h, -1)], 1)
     return (_SIGNATURE
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPE[channels],
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, _COLOR_TYPE[channels],
                                          0, 0, 0))
             + chunk(b"IDAT", zlib.compress(np.ascontiguousarray(rows).tobytes(), 6))
             + chunk(b"IEND", b""))
@@ -91,7 +98,8 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
 
 def decode_png(data: bytes) -> np.ndarray:
     """uint8 (H, W), (H, W, 3) or (H, W, 4) pixels of an 8-bit gray, RGB
-    or RGBA PNG without interlacing; any other PNG raises ValueError."""
+    or RGBA PNG, or uint16 (H, W) pixels of a 16-bit gray PNG, without
+    interlacing; any other PNG raises ValueError."""
     if data[:8] != _SIGNATURE:
         raise ValueError("not a PNG file")
     pos, header, idat = 8, None, []
@@ -111,13 +119,17 @@ def decode_png(data: bytes) -> np.ndarray:
     if header is None or not idat:
         raise ValueError("PNG has no IHDR or no IDAT chunk")
     w, h, depth, color_type, _, _, interlace = header
-    if depth != 8 or color_type not in _CHANNELS or interlace:
+    gray16 = depth == 16 and color_type == 0
+    if (depth != 8 and not gray16) or color_type not in _CHANNELS or interlace:
         raise ValueError(
             f"unsupported PNG (bit depth {depth}, colour type {color_type}, "
             f"interlace {interlace}): only 8-bit gray (0), RGB (2) and RGBA (6) "
-            "without interlacing are read")
+            "and 16-bit gray without interlacing are read")
+    raw = zlib.decompress(b"".join(idat))
+    if gray16:  # two bytes a sample, big-endian
+        return _unfilter(raw, h, 2 * w, 2).view(">u2").astype(np.uint16)
     channels = _CHANNELS[color_type]
-    pix = _unfilter(zlib.decompress(b"".join(idat)), h, w * channels, channels)
+    pix = _unfilter(raw, h, w * channels, channels)
     return pix.reshape(h, w) if channels == 1 else pix.reshape(h, w, channels)
 
 

@@ -1,1 +1,3 @@
-"""Robot-world facade: the simulated environment and perception."""
+"""Robot-world facade: the simulated environment, perception, and the
+hardware stack (capture processes, shared-memory IPC, RealEnv, arm,
+calibration)."""

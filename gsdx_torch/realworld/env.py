@@ -19,6 +19,7 @@ from gsdx_torch.core.device import require_device
 
 WORKSPACE_BBOX = np.array(
     [[0.0, 0.6], [-0.35, 0.45], [-0.10, 0.05]], np.float32)
+EEF_POINT_Z = 0.175  # gripper-frame tool point (`real_env.py:105`)
 
 
 class Env:

@@ -146,8 +146,9 @@ def test_port_imports_no_jax_flax_or_gsdx():
     """Nor PyYAML or msgpack, which the machine with the card lacks: the
     port reads its configs and checkpoints with its own code."""
     files = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, names in os.walk(os.path.join(REPO, "gsdx_torch")):
-        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for top in ("gsdx_torch", "tools"):
+        for root, _, names in os.walk(os.path.join(REPO, top)):
+            files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 10
     bad = []
     for path in files:

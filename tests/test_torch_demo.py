@@ -289,8 +289,10 @@ def test_clis_on_the_cpu(tmp_path, monkeypatch, capsys):
     assert "sim_real loop done" in capsys.readouterr().out
     assert len(os.listdir(tmp_path / "s" / "sim_cam0")) >= 2
 
-    with pytest.raises(NotImplementedError, match="hardware stack"):
-        sim_real_app.main(["--config", cfg, "--env", "real", "--device", "cpu"])
+    # --env real runs on the hardware stack; a real arm needs the xArm SDK
+    with pytest.raises(ImportError, match="xarm"):
+        sim_real_app.main(["--config", cfg, "--env", "real", "--device", "cpu",
+                           "--robot_ip", "10.0.0.1"])
     if not torch.cuda.is_available():  # the apps default to the card
         for main in (demo.main, sim_real.main):
             with pytest.raises(RuntimeError, match="no CUDA device"):

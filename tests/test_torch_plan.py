@@ -495,5 +495,66 @@ def test_plan_cli_on_the_cpu(tmp_path, monkeypatch):
     res = np.load(tmp_path / "out" / "interaction_0.npz")
     assert res["action"].shape == (4,) and np.isfinite(float(res["reward"]))
     assert (tmp_path / "out" / "stats.txt").read_text().startswith("final chamfer:")
-    with pytest.raises(NotImplementedError):
-        plan.main(["--config", "small.yaml", "--device", "cpu", "--env", "real"])
+    # a real arm needs the xArm SDK (and then a calibration): refused by name
+    with pytest.raises(ImportError, match="xarm"):
+        plan.main(["--config", "small.yaml", "--device", "cpu", "--env", "real",
+                   "--robot_ip", "10.0.0.1"])
+
+
+def test_plan_cli_real_env_on_fakes(tmp_path, monkeypatch):
+    """`--env real` end to end through the hardware stack's code path:
+    capture processes of static views of a red patch on the grey table ->
+    ring buffers -> `RealEnv.get_obs` -> perception -> MPPI -> `RealEnv.step`
+    on a `FakeArm` (tests/test_plan_real_env.py's scene and tiny model: gsdx's
+    `init_params` tree, loaded by the port's reader)."""
+    from test_plan_real_env import TINY_CFG, _object_scene_sources
+
+    import gsdx_torch.realworld.cameras as cams
+    from gsdx.dynamics.model import DynamicsPredictor as JPredictor
+    from gsdx.dynamics.train import init_params
+    from gsdx.io.checkpoint import save_checkpoint
+    from gsdx.io.config import load_config as j_load_config
+    from gsdx_torch.apps import plan
+
+    yaml = pytest.importorskip("yaml")
+    cfg = dict(TINY_CFG, train_config=dict(TINY_CFG["train_config"], out_dir=str(tmp_path)))
+    (tmp_path / "tiny.yaml").write_text(yaml.safe_dump(cfg))
+    train_cfg, model_cfg, data_cfg = j_load_config(str(tmp_path / "tiny.yaml"))
+    save_checkpoint(str(tmp_path / "checkpoints" / "latest.ckpt"),
+                    init_params(JPredictor(model_cfg), train_cfg, data_cfg,
+                                jax.random.PRNGKey(0)))
+
+    j_sources, R_list, t_list = _object_scene_sources()
+    sources = [cams.StaticImageSource(s.color, s.depth) for s in j_sources]
+    monkeypatch.setattr(cams, "SyntheticSource",
+                        lambda seed=0, **kw: sources[seed % len(sources)])
+    steps, envs = [], []
+    orig_make = plan.make_real_env
+
+    def patched_make(*a, **kw):
+        env = orig_make(*a, **kw)
+        env.R_cam2world, env.t_cam2world = list(R_list), list(t_list)
+        orig_step = env.step
+        env.step = lambda action, decoded=True: (steps.append(np.asarray(action)),
+                                                 orig_step(action, decoded))
+        envs.append(env)
+        return env
+
+    monkeypatch.setattr(plan, "make_real_env", patched_make)
+    out = tmp_path / "out"
+    plan.main(["--config", str(tmp_path / "tiny.yaml"), "--device", "cpu", "--env", "real",
+               "--cameras", "synthetic:2", "--robot_ip", "fake", "--out", str(out),
+               "--n_actions", "2", "--n_chunks", "1", "--n_sample", "16", "--seed", "1"])
+    assert len(steps) == 2
+    assert all(a.shape == (4,) and np.isfinite(a).all() for a in steps)
+    for f in ("interaction_0.npz", "interaction_1.npz", "stats.txt"):
+        assert (out / f).exists()
+    rec = np.load(out / "interaction_0.npz")
+    assert np.isfinite(rec["chamfer_before"]) and np.isfinite(rec["state"]).all()
+    assert rec["state"].any()  # the patch was perceived
+    cams_ = envs[0].cameras.cameras
+    assert len(cams_) == 2 and not any(c.is_alive() for c in cams_)  # joined at stop
+    # the arm ended back at its initial pose after each push's choreography
+    from gsdx_torch.realworld.robot import INIT_POSE
+
+    np.testing.assert_array_equal(envs[0].arm.get_position(), INIT_POSE)

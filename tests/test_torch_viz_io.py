@@ -178,12 +178,33 @@ def test_png_writer_round_trips(tmp_path, rng):
                                   (np.clip(f, 0, 1) * 255).astype(np.uint8))
 
 
-@pytest.mark.parametrize("mode", ["P", "LA", "I;16"])
+@pytest.mark.parametrize("mode", ["P", "LA", "1"])
 def test_read_png_refuses_other_formats(tmp_path, rng, mode):
     im = Image.fromarray(rng.integers(0, 200, size=(6, 8), dtype=np.uint8), "L")
     im.convert(mode).save(tmp_path / "x.png")
     with pytest.raises(ValueError, match="unsupported PNG"):
         read_png(str(tmp_path / "x.png"))
+    # 16 bits a sample are read for gray only: a 16-bit RGB header is refused
+    data = bytearray(encode_png(rng.integers(0, 256, size=(4, 4, 3), dtype=np.uint8)))
+    data[24] = 16  # IHDR bit depth
+    data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])))
+    with pytest.raises(ValueError, match="unsupported PNG"):
+        decode_png(bytes(data))
+
+
+def test_16_bit_gray_png_round_trips_with_pil(tmp_path, rng):
+    """RealSense depth (uint16 millimetres), as gsdx's masks app reads it
+    with PIL: the port's writer and reader against PIL's, both ways."""
+    depth = rng.integers(0, 65536, size=(23, 37), dtype=np.uint16)
+    depth[0, :4] = [0, 1, 255, 65535]  # both bytes of a sample matter
+    write_image(str(tmp_path / "port.png"), depth)
+    assert np.array_equal(np.asarray(Image.open(tmp_path / "port.png")).astype(np.int64),
+                          depth.astype(np.int64))
+    Image.fromarray(depth).save(tmp_path / "pil.png")
+    got = read_png(str(tmp_path / "pil.png"))
+    assert got.dtype == np.uint16
+    np.testing.assert_array_equal(got, depth)
+    np.testing.assert_array_equal(read_png(str(tmp_path / "port.png")), depth)
 
 
 def test_read_png_refuses_damage(tmp_path, rng):
