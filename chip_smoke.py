@@ -6,10 +6,11 @@ Phases, each printing one JSON line:
   1. card + build: the card's name and power limit; nvcc builds the
      compositor, GNN, GNN GEMM and probe kernel libraries from
      gsdx_torch/csrc, in parallel; each kernel's registers and spills (a
-     compositor kernel that spills fails), and `cuobjdump -sass` must find
-     HGMMA (wgmma) instructions in the GEMM kernel, and MUFU instructions in
-     the transcendental variant of the hot-loop probe (kernel #4) and none
-     in its polynomial variant.
+     compositor, GEMM or message kernel that spills fails), and `cuobjdump
+     -sass` must find HGMMA (wgmma) instructions in each of the GEMM's three
+     instantiations (128 and 256 wide, 128 with residuals), and MUFU
+     instructions in the transcendental variant of the hot-loop probe
+     (kernel #4) and none in its polynomial variant.
   2. kernels: each compositor variant (forward, forward with presort,
      backward, backward with presort) against its plain PyTorch version on
      real 720p tile inputs (8192 and 16384 Gaussians, and a saturating
@@ -20,9 +21,14 @@ Phases, each printing one JSON line:
      gap included, as PRs 1-3 timed it) and the kernel's device ms a call
      from `torch.profiler`, and the card's bound for the visible pairs'
      work and the bytes the function needs, beside a bound that charges
-     every processed pair its falloff; the GNN GEMM at the
-     `w2r` edge shape (63,000 x 512 x 512) against its plain version and
-     `torch.matmul`; the fused GNN forward against its plain version at
+     every processed pair its falloff; the GNN GEMM at the forward's
+     product shapes (`w2r` 63,000 x 512 x 512, `w2p` 16,000 x 512, `wt_rs`
+     16,000 x 1024, the head 16,000 x 8, the residual `wp1` 16,000 x 512)
+     against its plain version and `torch.matmul` (a call back to back and
+     its device ms), its grid read back from the launch (persistent: min(SMs,
+     tiles)); the receiver segments and one message round at the rope
+     chunk's slots, receiver-major and permuted, equal and bit-equal to
+     their plain versions; the fused GNN forward against its plain version at
      rope width (125 samples, 128 node slots, 504 edge slots; trained
      weights, edges of the committed trajectory) and cloth width (256 /
      1200, random init), with and without its index check; CUDA-event
@@ -35,8 +41,10 @@ Phases, each printing one JSON line:
   5. plan: one MPPI `trajectory_optimization` at rope width (trained
      weights, 100 particles, max_nR 500, 1000 samples, 8 repeat-sorted
      chunks), cut in depth to 2 update iterations; the GNN kernels' launch
-     counters must be > 0 for this run, with 15 GEMMs a forward; the fused
-     rollout against the module rollout on 16 samples.
+     counters must be > 0 for this run, with 15 GEMMs, 3 node-input layers,
+     1 edge layer, 1 segments launch and 3 message rounds a forward; the
+     fused rollout against the module rollout on 16 samples; device ms by
+     GNN kernel of one MPPI iteration.
   6. learn: in a temporary copy of the committed tracked rope episode
      (benchmarks/out/pipeline), `preprocess_episode` with its settings
      (dist 0.005, n_his 3, n_future 3, 1000 particles): the frame pairs must
@@ -114,6 +122,10 @@ Phases, each printing one JSON line:
      each action's seconds by stage and each camera's put rate.
 
 Then each phase's seconds; the run fails if it wrote into the checkout.
+Before the result, every process the run left (multiprocessing's resource
+tracker, which `real_env`'s shared memory starts, and any orphan, since the
+script makes itself their subreaper) is stopped and reaped, and listed in a
+`processes` line; after a failure too.
 The line before the last holds the kernel table; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero with no result.
 """
@@ -385,8 +397,11 @@ def ptxas_report(logs) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             name = next((k for k in ("gnn_gemm", "gnn_linear", "gnn_edge_first",
-                                     "gnn_message", "fwd", "bwd")
+                                     "gnn_segments", "gnn_message", "fwd", "bwd")
                          if re.search(rf"\d{k}_kernel", m.group(1))), m.group(1))
+            gemm = re.search(r"gnn_gemm_kernelILi(\d+)ELb([01])E", m.group(1))
+            if gemm:  # one entry per tile width, and the residual epilogue's
+                name = f"gnn_gemm_bn{gemm.group(1)}{'_res' if gemm.group(2) == '1' else ''}"
             probe = re.search(r"hot_loop_kernelILb([01])ELi(\d+)E", m.group(1))
             if probe:
                 name = f"hot_loop_{'transcend' if probe.group(1) == '1' else 'poly'}_{probe.group(2)}"
@@ -435,9 +450,11 @@ def mufu_counts(path) -> dict:
 
 
 def phase_build() -> dict:
-    """One nvcc per kernel source, all started together; the GEMM's SASS
-    must hold wgmma (HGMMA) instructions, and the hot-loop probe's SASS
-    MUFU instructions in its transcendental variant only."""
+    """One nvcc per kernel source, all started together; each of the GEMM's
+    three instantiations must hold wgmma (HGMMA) instructions in its SASS,
+    the compositor, the GEMM and the message kernel must spill no
+    register, and the hot-loop probe's SASS must hold MUFU instructions in
+    its transcendental variant only."""
     from gsdx_torch.kernels import composite, gnn_forward, probes
 
     libs = (composite.LIBRARY, gnn_forward.LIBRARY, gnn_forward.GEMM_LIBRARY,
@@ -447,27 +464,34 @@ def phase_build() -> dict:
         logs = list(pool.map(lambda lib: lib.build(), libs))
     for lib in libs:
         lib.load()
-    gemm_sass = [part for name, part in sass_functions(gnn_forward.GEMM_LIBRARY.path()).items()
-                 if "gnn_gemm_kernel" in name]
-    hgmma = sum(part.count("HGMMA") for part in gemm_sass)
-    if not hgmma:
-        raise AssertionError("no HGMMA instruction in the GEMM kernel's SASS")
+    hgmma = {name: part.count("HGMMA")
+             for name, part in sass_functions(gnn_forward.GEMM_LIBRARY.path()).items()
+             if "gnn_gemm_kernel" in name}
+    if len(hgmma) != 3 or not all(hgmma.values()):
+        raise AssertionError(f"HGMMA instructions in the GEMM's instantiations: {hgmma}")
     ptxas = ptxas_report(logs)
     composite = {k: v for k, v in ptxas.items() if k.startswith("composite_")}
     if len(composite) != 4:
         raise AssertionError(f"ptxas reported {sorted(composite)}: expected the "
                              "forward and backward at n_accum 4 and 7")
-    spills = {k: v.get("spill_bytes") for k, v in composite.items() if v.get("spill_bytes")}
+    # the compositor, every GEMM instantiation and the message kernel spill nothing
+    checked = {k: v for k, v in ptxas.items()
+               if k.startswith(("composite_", "gnn_gemm", "gnn_message"))}
+    if sorted(k for k in checked if k.startswith("gnn_gemm")) != [
+            "gnn_gemm_bn128", "gnn_gemm_bn128_res", "gnn_gemm_bn256"] or "gnn_message" not in checked:
+        raise AssertionError(f"ptxas reported {sorted(ptxas)}: expected the GEMM at "
+                             "128 (with and without residuals) and 256, and gnn_message")
+    spills = {k: v.get("spill_bytes") for k, v in checked.items() if v.get("spill_bytes")}
     if spills:
-        raise AssertionError(f"compositor kernels spill registers: {spills}")
+        raise AssertionError(f"kernels spill registers: {spills}")
     return {"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
             "libraries": [lib.path().name for lib in libs],
             "ptxas": ptxas, "gemm_hgmma_instructions": hgmma,
             "probe_mufu": mufu_counts(probes.LIBRARY.path()),
             "kernels": ["composite_fwd", "composite_fwd_presort",
                         "composite_bwd", "composite_bwd_presort",
-                        "gnn_linear", "gnn_gemm", "gnn_edge_first", "gnn_message",
-                        "hot_loop", "hot_loop_poly", "dynamic_roll"]}
+                        "gnn_linear", "gnn_gemm", "gnn_edge_first", "gnn_segments",
+                        "gnn_message", "hot_loop", "hot_loop_poly", "dynamic_roll"]}
 
 
 def check_forward(tf, counts, geo: dict, presort: bool, what: str):
@@ -795,7 +819,8 @@ def forward_kernel_ms(packed, ins, pstep: int, calls: int = 5) -> dict:
         for _ in range(calls):
             G._launch_forward(packed, *ins, pstep)
         torch.cuda.synchronize()
-    ms = {k: 0.0 for k in ("gnn_linear", "gnn_gemm", "gnn_edge_first", "gnn_message")}
+    ms = {k: 0.0 for k in ("gnn_linear", "gnn_gemm", "gnn_edge_first", "gnn_segments",
+                           "gnn_message")}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             for k in ms:
@@ -841,7 +866,8 @@ def compare_gnn(name: str, packed, ins, n_obj: int, weights: str) -> dict:
                    + out_k.numel() * 4)
     t_bytes = bytes_moved / PEAK_BYTES_S
     t_bf16 = flops / PEAK_BF16_FLOP_S
-    unfused = G.forward_bytes(B * n_pad, B * E, F, 9, pstep)
+    unfused = G.forward_bytes(B * n_pad, B * E, F, 9, pstep, n_samples=B,
+                              **G.message_counts(ins[4], ins[5], n_pad))
     breakdown = {k: {"device_ms": ms, "bytes_floor_ms": 1e3 * unfused[k] / PEAK_BYTES_S}
                  for k, ms in forward_kernel_ms(packed, ins, pstep).items()}
     return {"name": name, "B": B, "n_pad": n_pad, "E": E, "n_obj": n_obj,
@@ -862,62 +888,173 @@ def compare_gnn(name: str, packed, ins, n_obj: int, weights: str) -> dict:
             "achieved_tflop_s": flops / (ms_k * 1e-3) / 1e12}
 
 
-def compare_gemm(packed) -> dict:
-    """The tensor-core GEMM at the `w2r` edge shape of the rope chunk
-    (63,000 x 512 x 512, bias and ReLU, bf16 out) against its plain version,
-    with `torch.matmul` of the same bf16 operands (bf16 out) as the
-    yardstick; all three timed back to back."""
+# The GEMM at the fused forward's products of a 125-sample rope chunk:
+# (name, rows, weight copy, N, bias row or None, residuals, relu, outputs)
+GEMM_SHAPES = (("w2r", 125 * 504, "wt_2r", 512, 1, 0, True, "bf16"),
+               ("w2p", 125 * 128, "wt_2p", 512, 5, 0, True, "bf16"),
+               ("wt_rs", 125 * 128, "wt_rs", 1024, None, 0, False, "f32"),
+               ("wh3", 125 * 128, "wt_h3", 8, 10, 0, False, "f32"),
+               ("wp1", 125 * 128, "wt_p1", 512, None, 2, True, "both"))
+
+
+def compare_gemm(packed) -> list[dict]:
+    """The tensor-core GEMM at each product shape of the forward (the edge
+    rows' `w2r`, the node rows' `w2p`, a round's `wt_rs` and its residual
+    `wp1`, the head's `wh3`, each with its epilogue) against its plain
+    version, with `torch.matmul` of the same bf16 operands (bf16 out) as
+    the yardstick: each a call's mean back to back and its device ms from
+    `torch.profiler`. The launch must be persistent: min(SMs, tiles)
+    blocks, as the C side reports them."""
     from gsdx_torch.kernels import gnn_forward as G
 
-    M, F = 125 * 504, packed.w2r.shape[0]
+    F = packed.w2r.shape[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     g = torch.Generator(device="cuda").manual_seed(5)
-    x = torch.relu(torch.randn(M, F, device="cuda", generator=g)).to(torch.bfloat16)
-    wt, bias = packed.wt_2r, packed.biases[1]
-    kw = dict(bias=bias, relu=True, f32=False, bf16=True)
-    out_k = G.gnn_gemm(x, wt, **kw)[1]
-    out_p = G.gnn_gemm_plain(x, wt, **kw)[1]
-    torch.cuda.synchronize()
-    # f32 sums in another order: one bf16 ulp (2^-7 of the value at most)
-    # where the sum lands on a rounding boundary
-    diff = (out_k.float() - out_p.float()).abs()
-    if not (diff <= 2.0 ** -7 * out_p.float().abs() + 1e-6).all():
-        raise AssertionError(f"gnn_gemm vs plain: max |err| {float(diff.max())}")
-    ms_k = cuda_ms_back_to_back(lambda: G.gnn_gemm(x, wt, **kw))
-    ms_p = cuda_ms_back_to_back(lambda: G.gnn_gemm_plain(x, wt, **kw), reps=5)
-    w_kn = wt.t()  # (K, N) view of the same weights
-    ms_lib = cuda_ms_back_to_back(lambda: torch.matmul(x, w_kn))
-    flops = 2 * M * F * F
-    bytes_moved = 2 * M * F + 2 * F * F + 4 * F + 2 * M * F
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES_S, flops / PEAK_BF16_FLOP_S
-    return {"name": "gnn_gemm", "M": M, "N": F, "K": F, "epilogue": "bias, relu, bf16 out",
-            "max_abs_err": float(diff.max()), "ms": ms_k, "plain_ms": ms_p,
-            "library_ms": ms_lib, "library_call": "torch.matmul, bf16 operands and out",
+    rows = []
+    for name, M, field, N, bias_row, n_res, relu, outs in GEMM_SHAPES:
+        x = torch.relu(torch.randn(M, F, device="cuda", generator=g)).to(torch.bfloat16)
+        wt = getattr(packed, field)
+        bias = None if bias_row is None else packed.biases[bias_row, :N].contiguous()
+        res = [torch.randn(M, N, device="cuda", generator=g) for _ in range(n_res)]
+        r1, r2 = (res + [None, None])[:2]
+        kw = dict(bias=bias, r1=r1, r2=r2, relu=relu, f32=outs != "bf16", bf16=outs != "f32")
+        out_k = G.gnn_gemm(x, wt, N, **kw)
+        launch = G.gemm_last_launch()
+        out_p = G.gnn_gemm_plain(x, wt, N, **kw)
+        torch.cuda.synchronize()
+        tiles = -(-M // launch["block_m"]) * -(-N // launch["block_n"])
+        if launch["tiles"] != tiles or launch["grid"] != min(sms, tiles):
+            raise AssertionError(f"gnn_gemm {name}: launch {launch}, expected a persistent "
+                                 f"grid of min({sms} SMs, {tiles} tiles)")
+        # A bf16 output without residuals: f32 sums in another order differ
+        # by one bf16 ulp (2^-7 of the value at most) where the sum lands on
+        # a rounding boundary. An f32 output, or one with residuals, takes
+        # tests/test_torch_gnn_kernel.py's bound for two results: an f32 sum
+        # in any order is within (K + 3) 2^-23 of the terms' magnitudes of
+        # the exact value, twice over for kernel and plain; a bf16 output
+        # adds each side's rounding, half a bf16 ulp (2^-8 of the value).
+        # Near zero after the ReLU a bf16 value keeps the f32 difference,
+        # which residuals of order 1 make larger than 1e-6.
+        mag = x.float().abs() @ wt[:N].float().abs().t()
+        for extra in (bias, r1, r2):
+            if extra is not None:
+                mag = mag + extra.abs()
+        f32_bound = 2 * (F + 3) * 2.0 ** -23 * mag
+        err = 0.0
+        for k_out, p_out, bf in ((out_k[0], out_p[0], False), (out_k[1], out_p[1], True)):
+            if k_out is None:
+                continue
+            diff = (k_out.float() - p_out.float()).abs()
+            if bf and not n_res:
+                bound = 2.0 ** -7 * p_out.float().abs() + 1e-6
+            elif bf:
+                bound = (f32_bound * (1 + 2.0 ** -8)
+                         + 2.0 ** -8 * (k_out.float().abs() + p_out.float().abs()))
+            else:
+                bound = f32_bound
+            if not (torch.isfinite(k_out).all() and (diff <= bound).all()):
+                raise AssertionError(f"gnn_gemm {name} vs plain: max |err| {float(diff.max())}")
+            err = max(err, float(diff.max()))
+        w_kn = wt[:N].t()  # (K, N) view of the same weights
+        flops = 2 * M * N * F
+        bytes_moved = (2 * M * F + 2 * N * F + (4 * N if bias is not None else 0)
+                       + 4 * M * N * n_res + {"bf16": 2, "f32": 4, "both": 6}[outs] * M * N)
+        t_bytes, t_ops = bytes_moved / PEAK_BYTES_S, flops / PEAK_BF16_FLOP_S
+        ms = cuda_ms_back_to_back(lambda: G.gnn_gemm(x, wt, N, **kw))
+        device_ms = kernel_device_ms(lambda: G.gnn_gemm(x, wt, N, **kw), r"gnn_gemm_kernel")
+        rows.append({
+            "name": "gnn_gemm", "shape": name, "M": M, "N": N, "K": F,
+            "epilogue": {"bias": bias is not None, "residuals": n_res, "relu": relu,
+                         "out": outs},
+            "launch": launch, "max_abs_err": err, "ms": ms, "device_ms": device_ms,
+            "plain_ms": cuda_ms_back_to_back(lambda: G.gnn_gemm_plain(x, wt, N, **kw), reps=5),
+            "library_ms": cuda_ms_back_to_back(lambda: torch.matmul(x, w_kn)),
+            "library_device_ms": kernel_device_ms(lambda: torch.matmul(x, w_kn), "."),
+            "library_call": "torch.matmul, bf16 operands and out",
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "achieved_tflop_s": flops / (ms_k * 1e-3) / 1e12,
-            "achieved_gb_s": bytes_moved / (ms_k * 1e-3) / 1e9}
+            "achieved_tflop_s": flops / (device_ms * 1e-3) / 1e12})
+    return rows
 
 
-def phase_gnn_kernels() -> list[dict]:
+def compare_message(ins) -> list[dict]:
+    """The message round's kernels at the rope chunk's edge slots: the
+    receiver segments equal to `receiver_segments_plain` on the slots as
+    `construct_edge_indices_batch` packs them (receiver-major) and
+    permuted; one round's aggregation bit-equal to `gnn_message_plain` and
+    to itself on a second run, on both. Random f32 rel_pre and ewr | ews;
+    each kernel a call's mean back to back and its device ms, beside the
+    bytes of the slots that reach an aggregation and of their receivers'
+    and senders' rows."""
+    from gsdx_torch.kernels import gnn_forward as G
+
+    recv, send = ins[4], ins[5]
+    B, E = recv.shape
+    n_pad, F = ins[0].shape[1], 512
+    g = torch.Generator(device="cuda").manual_seed(6)
+    rel_pre = torch.randn(B * E, F, device="cuda", generator=g)
+    ew = torch.randn(B * n_pad, 2 * F, device="cuda", generator=g)
+    perm = torch.randperm(E, device="cuda", generator=g)
+    cases = {"receiver_major": (recv, send),
+             "permuted": (recv[:, perm].contiguous(), send[:, perm].contiguous())}
+    for case, (rv, sd) in cases.items():
+        seg = G.gnn_segments(rv, n_pad)
+        ref = G.receiver_segments_plain(rv, n_pad)
+        agg = G.gnn_message(rel_pre, ew, *seg, sd, n_pad)
+        again = G.gnn_message(rel_pre, ew, *seg, sd, n_pad)
+        plain = G.gnn_message_plain(rel_pre, ew, *seg, sd, n_pad)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(seg, ref)):
+            raise AssertionError(f"gnn_segments differs from its plain version ({case} slots)")
+        if not (torch.equal(agg, plain) and torch.equal(agg, again)):
+            raise AssertionError(f"gnn_message is not bit-equal to its plain version and to "
+                                 f"itself ({case} slots)")
+    seg = G.gnn_segments(recv, n_pad)
+    counts = G.message_counts(recv, send, n_pad)
+    n_msg = counts["n_messages"]
+    need = G.forward_bytes(B * n_pad, B * E, F, 9, 1, n_samples=B, **counts)
+    common = {"route": "cuda", "source": "gsdx_torch/csrc/gnn_forward.cu", "B": B, "E": E,
+              "n_pad": n_pad, "messages": n_msg, "receivers": counts["n_receivers"],
+              "senders": counts["n_senders"], "max_abs_err": 0.0,
+              "equal_to_plain": True, "bound_by": "bytes", "library_ms": None,
+              "library_call": "none: no single PyTorch call computes it"}
+    return [
+        dict(common, name="gnn_segments",
+             ms=cuda_ms_back_to_back(lambda: G.gnn_segments(recv, n_pad)),
+             device_ms=kernel_device_ms(lambda: G.gnn_segments(recv, n_pad),
+                                        r"gnn_segments_kernel"),
+             plain_ms=cuda_ms_back_to_back(lambda: G.receiver_segments_plain(recv, n_pad),
+                                           reps=5),
+             bound_ms=1e3 * need["gnn_segments"] / PEAK_BYTES_S),
+        dict(common, name="gnn_message",
+             ms=cuda_ms_back_to_back(lambda: G.gnn_message(rel_pre, ew, *seg, send, n_pad)),
+             device_ms=kernel_device_ms(lambda: G.gnn_message(rel_pre, ew, *seg, send, n_pad),
+                                        r"gnn_message_kernel"),
+             plain_ms=cuda_ms_back_to_back(
+                 lambda: G.gnn_message_plain(rel_pre, ew, *seg, send, n_pad), reps=5),
+             bound_ms=1e3 * need["gnn_message"] / PEAK_BYTES_S)]
+
+
+def phase_gnn_kernels() -> dict:
     """Kernel #3 at the rope shapes the plan phase gives it (one 125-sample
-    chunk of 1000), its GEMM at that chunk's `w2r` edge shape, and the
-    forward at the cloth family's 256 / 1200 shapes."""
+    chunk of 1000), its GEMM at that chunk's product shapes, its segments
+    and message kernels at that chunk's edge slots, and the forward at the
+    cloth family's 256 / 1200 shapes."""
     from gsdx_torch.dynamics.model import DynamicsPredictor, ModelConfig, flax_params
     from gsdx_torch.kernels import gnn_forward as G
 
     rope = G.pack_gnn_params(flax_params(rope_model(), as_numpy=False), device="cuda")
-    rows = [compare_gnn("gnn_forward_rope", rope,
-                        gnn_inputs(125, 100, 128, 500, 5, 0.08, False), 100, "trained"),
-            compare_gemm(rope)]
+    rope_ins = gnn_inputs(125, 100, 128, 500, 5, 0.08, False)
+    out = {"rope": compare_gnn("gnn_forward_rope", rope, rope_ins, 100, "trained"),
+           "gemm": compare_gemm(rope), "round": compare_message(rope_ins)}
     cloth = DynamicsPredictor(ModelConfig(state_dim=1, motion_dim=3),
                               generator=torch.Generator().manual_seed(0))
     packed = G.pack_gnn_params(flax_params(cloth, as_numpy=False), device="cuda")
-    rows.append(compare_gnn("gnn_forward_cloth", packed,
-                            gnn_inputs(125, 150, 256, 1200, 6, 0.075, True), 150,
-                            "random"))
-    for r in rows:
+    out["cloth"] = compare_gnn("gnn_forward_cloth", packed,
+                               gnn_inputs(125, 150, 256, 1200, 6, 0.075, True), 150, "random")
+    for r in [out["rope"], *out["gemm"], *out["round"], out["cloth"]]:
         emit(dict(r, phase="kernels"))
-    return rows
+    return out
 
 
 def phase_rasterize(card: str) -> list[dict]:
@@ -1126,11 +1263,13 @@ def phase_plan(card: str) -> dict:
         if v <= 0:
             raise AssertionError(f"GNN kernel {k} never launched in the plan phase")
     # every product of depth F on the tensor-core GEMM, the three node-input
-    # layers on gnn_linear
+    # layers on gnn_linear, the receiver segments once and a message a round
     forwards = launches["gnn_forward"]
-    if launches["gnn_gemm"] != 15 * forwards or launches["gnn_linear"] != 3 * forwards:
-        raise AssertionError(f"plan phase launches {launches}: expected 15 GEMMs and "
-                             "3 node-input layers a forward")
+    per_forward = {"gnn_gemm": 15, "gnn_linear": 3, "gnn_edge_first": 1, "gnn_segments": 1,
+                   "gnn_message": 3}
+    if any(launches[k] != n * forwards for k, n in per_forward.items()):
+        raise AssertionError(f"plan phase launches {launches}: expected {per_forward} "
+                             "a forward")
     if not (np.isfinite(iter_best).all() and np.isfinite(row["best_reward"])):
         raise AssertionError("non-finite rewards in the plan phase")
     if not row["best_reward"] >= iter_best[0]:
@@ -1150,6 +1289,15 @@ def phase_plan(card: str) -> dict:
         module = make_batched_rollout(model_bf, RolloutSpec(**spec, fused="off"))(state, acts)
     err = float((fused["state_seqs"] - module["state_seqs"]).abs().max())
     row["fused_vs_module_max_abs_err"] = err
+    # device ms by kernel of one MPPI iteration of the same planner
+    planner1, state1, init1, _ = plan_setup(1000, 1, model)
+    gen1 = torch.Generator(device="cuda").manual_seed(43)
+    prof = device_profile(lambda: planner1.trajectory_optimization(gen1, state1, init1),
+                          "MPPI iteration, rope, 1000 samples, 100 particles, 8 chunks",
+                          steps=1, groups=GNN_KERNELS)
+    row["mppi_iteration"] = {k: prof[k] for k in (
+        "wall_ms_per_call", "device_busy_ms_per_call", "device_idle_share",
+        "launches_per_call", "device_ms_by_group")}
     emit(row)
     # tests/test_gnn_fused.py's bf16-class tolerance for chained pushes
     if not err <= 2e-3:
@@ -1157,12 +1305,16 @@ def phase_plan(card: str) -> dict:
     return row
 
 
-def device_profile(fn, what: str, steps: int = 5, top: int = 12) -> dict:
+GNN_KERNELS = ("gnn_gemm", "gnn_message", "gnn_linear", "gnn_edge_first", "gnn_segments")
+
+
+def device_profile(fn, what: str, steps: int = 5, top: int = 12,
+                   groups: tuple[str, ...] = ()) -> dict:
     """Where one call of ``fn`` spends its time: the wall time of ``steps``
     calls after a warm-up, then `torch.profiler` over as many calls for the
-    device time summed by kernel name. The idle share compares the device
-    time with the wall time taken without the profiler, which slows the
-    host."""
+    device time summed by kernel name (and by each of ``groups``: the
+    kernels named <group>_kernel). The idle share compares the device time
+    with the wall time taken without the profiler, which slows the host."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1185,7 +1337,10 @@ def device_profile(fn, what: str, steps: int = 5, top: int = 12) -> dict:
     kernels.sort(key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
     composite_ms = sum(k[1] for k in kernels if re.search(r"\b(fwd|bwd)_kernel<", k[0]))
+    by_group = {g: sum(k[1] for k in kernels if f"{g}_kernel" in k[0]) for g in groups}
+    by_group["other"] = busy_ms - sum(by_group.values())
     return {"phase": "profile", "what": what, "wall_ms_per_call": wall_ms,
+            "device_ms_by_group": by_group,
             "profiled_wall_ms_per_call": profiled_wall_ms,
             "device_busy_ms_per_call": busy_ms,
             "compositor_device_ms_per_call": composite_ms,
@@ -1248,7 +1403,8 @@ def phase_profile(train_iteration, predict_step, online_iteration) -> list[dict]
     gen = torch.Generator(device="cuda").manual_seed(43)
     rows.append(device_profile(
         lambda: planner.trajectory_optimization(gen, state, init),
-        "MPPI iteration, rope, 1000 samples, 100 particles, 8 chunks", steps=2))
+        "MPPI iteration, rope, 1000 samples, 100 particles, 8 chunks", steps=2,
+        groups=GNN_KERNELS))
     rows.append(device_profile(
         train_iteration, "train iteration, rope width, batch 16, n_future 5 "
         "(batch assembly and step)"))
@@ -2433,12 +2589,92 @@ def tree_state() -> dict:
     return out
 
 
+def become_subreaper() -> None:
+    """Make this process the reaper of its orphaned descendants (Linux
+    `prctl(PR_SET_CHILD_SUBREAPER)`): a process whose parent exits before
+    it, such as the resource tracker of the shared-memory server that
+    `real_env`'s cameras use, is then re-parented here, where
+    `stop_children` finds it, and not to init."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(36, 1, 0, 0, 0) != 0:  # 36: PR_SET_CHILD_SUBREAPER
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER) failed")
+
+
+def children() -> list[tuple[int, str]]:
+    """(pid, command name) of this process's children, zombies included,
+    from /proc."""
+    me, out = os.getpid(), []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+        except OSError:  # gone meanwhile
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == me:  # state, ppid, ...
+            out.append((int(d), stat[stat.index("(") + 1:stat.rindex(")")]))
+    return out
+
+
+def stop_children(timeout: float = 10.0) -> list[str]:
+    """Stop and reap every process this run left, before it exits.
+
+    Any multiprocessing child still alive is terminated first. Shared
+    memory made by this process starts multiprocessing's resource tracker,
+    which lives until its parent exits and a moment longer: its pipe is
+    closed here, as multiprocessing's own `_stop` does, and the tracker
+    exits on that end of file. Every child (orphans included, see
+    `become_subreaper`) is then waited for, and sent SIGTERM and, after
+    ``timeout`` seconds, SIGKILL until it is reaped. Returns "pid name" of
+    each process stopped; raises if one is left."""
+    import multiprocessing as mp
+    import signal
+    from multiprocessing import resource_tracker
+
+    for p in mp.active_children():
+        p.terminate()
+        p.join(timeout)
+    tracker = resource_tracker._resource_tracker
+    with tracker._lock:
+        if tracker._fd is not None:
+            os.close(tracker._fd)
+            tracker._fd = tracker._pid = None
+    stopped = {}
+    for sig, wait in ((None, 2.0), (signal.SIGTERM, timeout), (signal.SIGKILL, timeout)):
+        t_end = time.monotonic() + wait
+        while (left := children()) and time.monotonic() < t_end:
+            for pid, name in left:
+                stopped.setdefault(pid, name)
+                try:
+                    if sig is not None:
+                        os.kill(pid, sig)
+                    os.waitpid(pid, os.WNOHANG)
+                except (ProcessLookupError, ChildProcessError):
+                    pass
+            time.sleep(0.02)
+    if left := children():
+        raise AssertionError(f"processes left running: {left}")
+    return [f"{pid} {name}" for pid, name in stopped.items()]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import gsdx_torch  # noqa: F401  (fails here, before any output, outside the repo)
 
+    become_subreaper()
+    try:
+        return run()
+    finally:
+        stop_children()  # after a failure too: leave no process behind
+
+
+def run() -> int:
+    """Every phase, then the kernel table and the result line."""
     # the plain versions are references: full f32 everywhere
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2508,7 +2744,7 @@ def main() -> int:
         for k in (online_fwd, online_bwd):
             if k["name"] == r["name"]:
                 table[-1]["online_shape"] = {key: k[key] for key in shape_keys}
-    rope, gemm = gnn_rows[0], gnn_rows[1]  # the plan path's shapes
+    rope, gemm = gnn_rows["rope"], gnn_rows["gemm"][0]  # the plan path's shapes
     table.append({
         "name": "gnn_forward", "route": "cuda",
         "source": "gsdx_torch/csrc/gnn_forward.cu",
@@ -2517,6 +2753,8 @@ def main() -> int:
         "max_abs_err": rope["max_abs_err"], "ms": rope["ms"],
         "plain_ms": rope["plain_ms"], "bound_ms": rope["bound_ms"],
         "bound_by": rope["bound_by"], "library_ms": None})
+    shape_keys = ("M", "N", "K", "epilogue", "ms", "device_ms", "library_ms",
+                  "library_device_ms", "bound_ms", "max_abs_err")
     table.append({
         "name": "gnn_gemm", "route": "cuda",
         "source": "gsdx_torch/csrc/gnn_gemm.cu",
@@ -2524,13 +2762,24 @@ def main() -> int:
         "launches": plan_row["launches"]["gnn_gemm"],
         "max_abs_err": gemm["max_abs_err"], "ms": gemm["ms"],
         "plain_ms": gemm["plain_ms"], "bound_ms": gemm["bound_ms"],
-        "bound_by": gemm["bound_by"], "library_ms": gemm["library_ms"]})
+        "bound_by": gemm["bound_by"], "library_ms": gemm["library_ms"],
+        "device_ms": gemm["device_ms"], "library_device_ms": gemm["library_device_ms"],
+        "shapes": {r["shape"]: {k: r[k] for k in shape_keys} for r in gnn_rows["gemm"]}})
+    for r in gnn_rows["round"]:
+        table.append({
+            "name": r["name"], "route": "cuda", "source": r["source"],
+            "replaces": "gsdx/kernels/gnn_forward.py:180",
+            "launches": plan_row["launches"][r["name"]],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "device_ms": r["device_ms"]})
     for r in probe_rows:
         roll = r["name"] == "dynamic_roll"
         table.append(dict(
             r, route="cuda", source="gsdx_torch/csrc/probes.cu",
             replaces=("benchmarks/probe_dynamic_roll.py:10" if roll
                       else "benchmarks/probe_transcendental.py:48")))
+    emit({"phase": "processes", "stopped": stop_children()})
     print(info["nvidia_smi"], flush=True)
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -36,14 +36,23 @@
 //   * gnn_edge_first: relation-encoder layer 1 in node-side form,
 //     h1[e] = relu(nr[recv] + ns[send] + |g[recv] - g[send]| w_g + b1),
 //     stored bf16.
+//   * gnn_segments: once a forward, per sample, a stable counting sort of
+//     the non-empty slots by receiver: seg_off (B, n_pad + 1) the start of
+//     each receiver's segment, seg_slot (B, E) the slots of each segment in
+//     ascending order (-1 past the last). Slots may come in any order. One
+//     block a sample: shared-memory counts, one warp's scan, then one warp
+//     places the slots 32 at a time in slot order (`__match_any_sync`
+//     ranks the lanes that share a receiver).
 //   * gnn_message: agg[b, n] = sum over slots e with recv[b, e] = n of
-//     relu(rel_pre[e] + ewr[b, n] + ews[b, send[e]]), summed in f32 and
-//     stored bf16. The edge effect is read only by this sum, so it never
-//     reaches device memory. One block per node row scans its sample's
-//     receivers 32 at a time with a warp ballot and adds the matches in
-//     slot order: no atomics, and the same result on every run, whatever
-//     order the slots come in.
-//
+//     relu(rel_pre[e] + ewr[b, n] + ews[b, send[e]]), summed in f32 in slot
+//     order and stored bf16. The edge effect is read only by this sum, so
+//     it never reaches device memory. Each node row walks only its own
+//     segment: its warps read up to 32 of the segment's slots and their
+//     senders at once, then keep MESSAGE_DEPTH slots' rows in flight before
+//     adding them in order. No atomics, and the same bits on every run,
+//     whatever order the slots come in. Bound by bytes: the f32 rel_pre
+//     rows of the slots that reach an aggregation (read once, streamed
+//     past L2's keep), ew and agg.
 // Empty slots (-1) never reach an aggregation. Their rows of the relation
 // encoder hold relu(b1)-derived values, as in the TPU kernel, and nothing
 // reads them.
@@ -185,11 +194,80 @@ __global__ void gnn_edge_first_kernel(const float* __restrict__ nrs,
   store_bf16x4(&h1[e * F + f], o0, o1, o2, o3);
 }
 
-// One block per node row, F / 4 threads (whole warps) of four columns each.
-// ew (B * n_pad, 2F): ewr in columns [0, F), ews in [F, 2F).
+constexpr int SEGMENT_THREADS = 256;
+constexpr int MAX_N_PAD = 1024;  // node rows of a sample the segment kernel takes
+constexpr int MESSAGE_DEPTH = 4;  // slots whose rows a thread has in flight
+
+// One block per sample. A slot whose receiver lies outside [0, n_pad) is
+// empty.
+__global__ void __launch_bounds__(SEGMENT_THREADS)
+gnn_segments_kernel(const int* __restrict__ recv, int* __restrict__ seg_off,
+                    int* __restrict__ seg_slot, int E, int n_pad) {
+  __shared__ int count[MAX_N_PAD];
+  __shared__ int cursor[MAX_N_PAD];
+  __shared__ int total;
+  const long b = blockIdx.x;
+  const int* rr = recv + b * E;
+  int* slots = seg_slot + b * E;
+  int* off = seg_off + b * (n_pad + 1);
+  const int tid = threadIdx.x, lane = tid % 32;
+  for (int n = tid; n < n_pad; n += blockDim.x) count[n] = 0;
+  __syncthreads();
+  for (int e = tid; e < E; e += blockDim.x) {
+    const int r = rr[e];
+    if (r >= 0 && r < n_pad) atomicAdd(&count[r], 1);
+  }
+  __syncthreads();
+  if (tid < 32) {  // exclusive scan: each lane a run of (n_pad / 32) receivers
+    const int per = (n_pad + 31) / 32, lo = min(lane * per, n_pad), hi = min(lo + per, n_pad);
+    int sum = 0;
+    for (int n = lo; n < hi; ++n) sum += count[n];
+    int incl = sum;
+#pragma unroll
+    for (int d = 1; d < 32; d *= 2) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += v;
+    }
+    int run = incl - sum;
+    for (int n = lo; n < hi; ++n) {
+      cursor[n] = run;
+      off[n] = run;
+      run += count[n];
+    }
+    if (lane == 31) {
+      off[n_pad] = incl;
+      total = incl;
+    }
+    __syncwarp();
+    // stable placement, 32 slots at a time in slot order: a lane's place is
+    // its receiver's cursor plus the lower lanes with the same receiver,
+    // and the highest of those lanes moves the cursor on
+    for (int e0 = 0; e0 < E; e0 += 32) {
+      const int e = e0 + lane;
+      int r = e < E ? rr[e] : -1;
+      if (r >= n_pad) r = -1;
+      const unsigned peers = __match_any_sync(0xffffffffu, r);
+      const int rank = __popc(peers & ((1u << lane) - 1));
+      const int base = r >= 0 ? cursor[r] : 0;
+      __syncwarp();
+      if (r >= 0) {
+        slots[base + rank] = e;
+        if ((peers >> lane) == 1u) cursor[r] = base + rank + 1;
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+  for (int p = total + tid; p < E; p += blockDim.x) slots[p] = -1;
+}
+
+// One block per node row, F / 4 threads (whole warps) of four columns each
+// (two or four rows a block were slower). ew (B * n_pad, 2F): ewr in
+// columns [0, F), ews in [F, 2F).
 __global__ void gnn_message_kernel(const float* __restrict__ rel_pre,
                                    const float* __restrict__ ew,
-                                   const int* __restrict__ recv,
+                                   const int* __restrict__ seg_off,
+                                   const int* __restrict__ seg_slot,
                                    const int* __restrict__ send,
                                    __nv_bfloat16* __restrict__ agg, int E, int n_pad,
                                    int F) {
@@ -198,27 +276,39 @@ __global__ void gnn_message_kernel(const float* __restrict__ rel_pre,
   const int n = static_cast<int>(node % n_pad);
   const int lane = threadIdx.x & 31;
   const int f = threadIdx.x * 4;
-  const int* rr = recv + b * E;
+  const int* slots = seg_slot + b * E;
   const int* ss = send + b * E;
-  const float4 er = *reinterpret_cast<const float4*>(&ew[node * 2 * F + f]);
+  const int beg = seg_off[b * (n_pad + 1) + n], end = seg_off[b * (n_pad + 1) + n + 1];
+  // a receiver without messages reads no ewr row
+  const float4 er = beg < end ? *reinterpret_cast<const float4*>(&ew[node * 2 * F + f])
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int e0 = 0; e0 < E; e0 += 32) {
-    const int e = e0 + lane;
-    const int rv = e < E ? rr[e] : -1;
-    unsigned mask = __ballot_sync(0xffffffffu, rv == n);
-    while (mask) {
-      const int slot = e0 + __ffs(mask) - 1;
-      mask &= mask - 1;
-      const int s = ss[slot];
-      const float4 rp = *reinterpret_cast<const float4*>(
-          &rel_pre[(b * E + slot) * F + f]);
-      float4 es = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (s >= 0) es = *reinterpret_cast<const float4*>(
-          &ew[(b * n_pad + s) * 2 * F + F + f]);
-      acc.x += fmaxf(rp.x + er.x + es.x, 0.f);
-      acc.y += fmaxf(rp.y + er.y + es.y, 0.f);
-      acc.z += fmaxf(rp.z + er.z + es.z, 0.f);
-      acc.w += fmaxf(rp.w + er.w + es.w, 0.f);
+  for (int c0 = beg; c0 < end; c0 += 32) {
+    const int cnt = min(32, end - c0);  // the same in every lane of the row
+    const int my_slot = lane < cnt ? slots[c0 + lane] : 0;
+    const int my_send = lane < cnt ? ss[my_slot] : -1;
+    for (int i = 0; i < cnt; i += MESSAGE_DEPTH) {
+      float4 rp[MESSAGE_DEPTH], es[MESSAGE_DEPTH];
+#pragma unroll
+      for (int k = 0; k < MESSAGE_DEPTH; ++k) {
+        const int slot = __shfl_sync(0xffffffffu, my_slot, (i + k) & 31);
+        const int s = __shfl_sync(0xffffffffu, my_send, (i + k) & 31);
+        rp[k] = es[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (i + k < cnt) {
+          rp[k] = __ldcs(reinterpret_cast<const float4*>(&rel_pre[(b * E + slot) * F + f]));
+          if (s >= 0)
+            es[k] = *reinterpret_cast<const float4*>(&ew[(b * n_pad + s) * 2 * F + F + f]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < MESSAGE_DEPTH; ++k) {
+        if (i + k < cnt) {
+          acc.x += fmaxf(rp[k].x + er.x + es[k].x, 0.f);
+          acc.y += fmaxf(rp[k].y + er.y + es[k].y, 0.f);
+          acc.z += fmaxf(rp[k].z + er.z + es[k].z, 0.f);
+          acc.w += fmaxf(rp[k].w + er.w + es[k].w, 0.f);
+        }
+      }
     }
   }
   store_bf16x4(&agg[node * F + f], acc.x, acc.y, acc.z, acc.w);
@@ -263,14 +353,26 @@ int gsdx_gnn_edge_first(const float* nrs, const float* g, const int* recv,
   return static_cast<int>(cudaGetLastError());
 }
 
-int gsdx_gnn_message(const float* rel_pre, const float* ew, const int* recv,
-                     const int* send, void* agg, int B, int E, int n_pad,
-                     int F, void* stream) {
+// seg_off (B, n_pad + 1) and seg_slot (B, E) int32 out; recv (B, E).
+int gsdx_gnn_segments(const int* recv, int* seg_off, int* seg_slot, int B, int E,
+                      int n_pad, void* stream) {
+  if (n_pad <= 0 || n_pad > MAX_N_PAD || E < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return 0;
+  gnn_segments_kernel<<<B, SEGMENT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      recv, seg_off, seg_slot, E, n_pad);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// agg (B * n_pad, F) bf16 from rel_pre (B * E, F) and ew (B * n_pad, 2F)
+// f32, the segments of gsdx_gnn_segments and send (B, E).
+int gsdx_gnn_message(const float* rel_pre, const float* ew, const int* seg_off,
+                     const int* seg_slot, const int* send, void* agg, int B, int E,
+                     int n_pad, int F, void* stream) {
   if (bad_width(F)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   gnn_message_kernel<<<static_cast<unsigned>(B) * n_pad, F / 4, 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      rel_pre, ew, recv, send, static_cast<__nv_bfloat16*>(agg), E, n_pad, F);
+      rel_pre, ew, seg_off, seg_slot, send, static_cast<__nv_bfloat16*>(agg), E, n_pad, F);
   return static_cast<int>(cudaGetLastError());
 }
 

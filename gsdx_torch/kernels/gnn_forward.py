@@ -1,7 +1,7 @@
 """Fused GNN dynamics forward for the MPPI rollout (counterpart of
 `gsdx/kernels/gnn_forward.py`).
 
-Four pieces:
+Five pieces:
 
   * `pack_gnn_params` — the flax-layout param tree repacked as gsdx packs it:
     the relation encoder's first layer split by input block, the particle
@@ -18,11 +18,16 @@ Four pieces:
   * `gnn_gemm` — the wrapper of the bf16 tensor-core GEMM in
     `gsdx_torch/csrc/gnn_gemm.cu`, which computes every product of depth F;
     `gnn_gemm_plain` is its plain version.
+  * `gnn_segments` and `gnn_message` — the wrappers of the message round's
+    kernels: the receiver segments, built once a forward, and the
+    aggregation that walks them; `receiver_segments_plain` and
+    `gnn_message_plain` are their plain versions.
   * `fused_gnn_forward` — the wrapper that sequences the hand-written CUDA
     kernels of `gsdx_torch/csrc/gnn_forward.cu` (node-input layers, edge
-    layer 1, message rounds) and `gnn_gemm.cu` (the Hopper port of gsdx's
-    Pallas `_gnn_kernel`). A CUDA tensor launches them or raises; only CPU
-    tensors take the plain version. `LAUNCHES` counts the launches.
+    layer 1, receiver segments, message rounds) and `gnn_gemm.cu` (the
+    Hopper port of gsdx's Pallas `_gnn_kernel`). A CUDA tensor launches them
+    or raises; only CPU tensors take the plain version. `LAUNCHES` counts
+    the launches.
 
 Inputs, per sample b of a chunk: attrs (B, n_pad, 2), action (B, n_pad, 3),
 state_t (B, n_pad, 3 * n_his) history-major node positions, g (B, n_pad, 1)
@@ -36,6 +41,7 @@ history + motion + action).
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -47,12 +53,13 @@ from gsdx_torch.kernels._build import I32, PTR, CudaLibrary
 N_PAD_CHOICES = (128, 256)
 
 # Launches counted by the wrappers where they launch: one "gnn_forward" per
-# fused forward, and each of its four kernels per launch ("gnn_linear" the
+# fused forward, and each of its five kernels per launch ("gnn_linear" the
 # node-input layers, "gnn_gemm" every product of depth F).
 LAUNCHES = {"gnn_forward": 0, "gnn_linear": 0, "gnn_gemm": 0,
-            "gnn_edge_first": 0, "gnn_message": 0}
+            "gnn_edge_first": 0, "gnn_segments": 0, "gnn_message": 0}
 
-# Rows of a GEMM tile: the K-major weight copies hold a multiple of it.
+# The K-major weight copies hold a multiple of GEMM_BN rows: the narrow GEMM
+# tile's width (its wide tile, 256, is taken only where N is a multiple).
 GEMM_BN = 128
 
 
@@ -292,6 +299,61 @@ def gnn_gemm_plain(x: torch.Tensor, wt: torch.Tensor, n: int | None = None, *,
     return (y if f32 else None), (y.to(torch.bfloat16) if bf16 else None)
 
 
+def receiver_segments_plain(recv_idx: torch.Tensor, n_pad: int):
+    """`gnn_segments`' function in plain PyTorch: per sample, the non-empty
+    slots of ``recv_idx`` (B, E) sorted stably by receiver. Returns seg_off
+    (B, n_pad + 1) int32, where receiver n's slots start (seg_off[:, n_pad]
+    is the count of non-empty slots), and seg_slot (B, E) int32, the slots
+    of each receiver in ascending order, then -1. A slot whose receiver lies
+    outside [0, n_pad) is empty."""
+    B, E = recv_idx.shape
+    inside = (recv_idx >= 0) & (recv_idx < n_pad)
+    key = torch.where(inside, recv_idx, n_pad).long()  # empty slots last
+    order = torch.sort(key, dim=1, stable=True).indices
+    rows = key + torch.arange(B, device=key.device)[:, None] * (n_pad + 1)
+    counts = torch.bincount(rows.reshape(-1), minlength=B * (n_pad + 1))
+    counts = counts.reshape(B, n_pad + 1)[:, :n_pad]
+    seg_off = torch.cat([counts.new_zeros(B, 1), torch.cumsum(counts, 1)], 1)
+    pos = torch.arange(E, device=key.device)[None]
+    seg_slot = torch.where(pos < seg_off[:, -1:], order, torch.full_like(order, -1))
+    return seg_off.to(torch.int32), seg_slot.to(torch.int32)
+
+
+def gnn_message_plain(rel_pre: torch.Tensor, ew: torch.Tensor, seg_off: torch.Tensor,
+                      seg_slot: torch.Tensor, send_idx: torch.Tensor, n_pad: int,
+                      bf16: bool = True) -> torch.Tensor:
+    """`gnn_message`'s function in plain PyTorch: agg (B * n_pad, F), row
+    (b, n) the sum over receiver n's segment, in slot order, of
+    relu((rel_pre[slot] + ewr[b, n]) + ews[b, send[slot]]) (ews of an empty
+    sender reads as zero). rel_pre (B * E, F) and ew (B * n_pad, 2F) =
+    ewr | ews f32, the segments of `receiver_segments_plain`. The sum runs
+    one padded segment column at a time, each row adding its j-th slot (or
+    zero past its segment), so every entry is the kernel's sequence of f32
+    adds: bit-equal on the card. bf16 (nearest even) as the kernel stores
+    it, or the f32 sums."""
+    B, E = send_idx.shape
+    F = ew.shape[1] // 2
+    dev = ew.device
+    ewr, ews = ew[:, :F], ew[:, F:]
+    beg = seg_off[:, :-1].long()
+    cnt = seg_off[:, 1:].long() - beg
+    base_e = (torch.arange(B, device=dev) * E)[:, None]
+    base_n = (torch.arange(B, device=dev) * n_pad)[:, None]
+    acc = torch.zeros(B * n_pad, F, dtype=torch.float32, device=dev)
+    slots, send = seg_slot.long(), send_idx.long()
+    for j in range(int(cnt.max()) if cnt.numel() else 0):
+        valid = j < cnt  # (B, n_pad)
+        slot = torch.gather(slots, 1, (beg + j).clamp(max=max(E - 1, 0)))
+        slot = torch.where(valid, slot, torch.zeros_like(slot))
+        s = torch.gather(send, 1, slot)
+        rp = rel_pre[(base_e + slot).reshape(-1)]
+        es = ews[(base_n + s.clamp(min=0)).reshape(-1)]
+        es = torch.where((s >= 0).reshape(-1, 1), es, torch.zeros_like(es))
+        term = torch.relu(rp + ewr + es)
+        acc = acc + torch.where(valid.reshape(-1, 1), term, torch.zeros_like(term))
+    return acc.to(torch.bfloat16) if bf16 else acc
+
+
 # --------------------------------------------------------------------------
 # CUDA kernels: wrappers
 # --------------------------------------------------------------------------
@@ -300,13 +362,28 @@ LIBRARY = CudaLibrary(
     "gsdx_gnn_forward", "gnn_forward.cu",
     {"gsdx_gnn_linear": [PTR, I32, PTR, I32, PTR, PTR, PTR, PTR, I32, I32, I32, I32, PTR],
      "gsdx_gnn_edge_first": [PTR] * 7 + [I32] * 4 + [PTR],
-     "gsdx_gnn_message": [PTR] * 5 + [I32] * 4 + [PTR]},
+     "gsdx_gnn_segments": [PTR] * 3 + [I32] * 3 + [PTR],
+     "gsdx_gnn_message": [PTR] * 6 + [I32] * 4 + [PTR]},
     error_string="gsdx_gnn_error_string")
 
 GEMM_LIBRARY = CudaLibrary(
     "gsdx_gnn_gemm", "gnn_gemm.cu",
-    {"gsdx_gnn_gemm": [PTR, PTR, I32, I32, I32, PTR, PTR, PTR, PTR, PTR, I32, PTR]},
+    {"gsdx_gnn_gemm": [PTR, PTR, I32, I32, I32, PTR, PTR, PTR, PTR, PTR, I32, PTR],
+     "gsdx_gnn_gemm_last_launch": [PTR]},
     error_string="gsdx_gnn_gemm_error_string")
+
+GEMM_LAUNCH_FIELDS = ("grid", "tiles", "block_m", "block_n", "stages", "sms", "tma_store",
+                      "persistent")
+
+
+def gemm_last_launch() -> dict:
+    """The GEMM's last accepted launch as the C side made it: blocks in the
+    grid, output tiles, the tile's rows and columns, ring stages, the
+    device's SM count, and whether the epilogue stored by TMA and the grid
+    was persistent (1 or 0)."""
+    out = (ctypes.c_int * len(GEMM_LAUNCH_FIELDS))()
+    GEMM_LIBRARY.load().gsdx_gnn_gemm_last_launch(ctypes.cast(out, ctypes.c_void_p))
+    return dict(zip(GEMM_LAUNCH_FIELDS, out))
 
 
 def _ptr(t: torch.Tensor | None):
@@ -349,6 +426,59 @@ def gnn_gemm(x: torch.Tensor, wt: torch.Tensor, n: int | None = None, *,
     GEMM_LIBRARY.check(err, "gnn_gemm")
     LAUNCHES["gnn_gemm"] += 1
     return y, yb
+
+
+def gnn_segments(recv_idx: torch.Tensor, n_pad: int):
+    """(seg_off (B, n_pad + 1), seg_slot (B, E)) int32 of ``recv_idx`` (B, E)
+    int32, as `receiver_segments_plain` gives them (a receiver outside
+    [0, n_pad) makes its slot empty). A CUDA tensor launches
+    `gnn_segments_kernel`; a CPU tensor runs the plain version."""
+    if not recv_idx.is_cuda:
+        return receiver_segments_plain(recv_idx, n_pad)
+    if recv_idx.dtype != torch.int32 or recv_idx.dim() != 2 or not 0 < n_pad <= 1024:
+        raise ValueError(f"gnn_segments: recv_idx {tuple(recv_idx.shape)} {recv_idx.dtype}, "
+                         f"n_pad {n_pad}: wants (B, E) int32 and n_pad in (0, 1024]")
+    recv_idx = recv_idx.contiguous()
+    B, E = recv_idx.shape
+    seg_off = torch.empty((B, n_pad + 1), dtype=torch.int32, device=recv_idx.device)
+    seg_slot = torch.empty((B, E), dtype=torch.int32, device=recv_idx.device)
+    err = LIBRARY.load().gsdx_gnn_segments(
+        recv_idx.data_ptr(), seg_off.data_ptr(), seg_slot.data_ptr(), B, E, n_pad,
+        torch.cuda.current_stream(recv_idx.device).cuda_stream)
+    LIBRARY.check(err, "gnn_segments")
+    LAUNCHES["gnn_segments"] += 1
+    return seg_off, seg_slot
+
+
+def gnn_message(rel_pre: torch.Tensor, ew: torch.Tensor, seg_off: torch.Tensor,
+                seg_slot: torch.Tensor, send_idx: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """One message round's aggregation, agg (B * n_pad, F) bf16; the
+    arguments as `gnn_message_plain`'s. CUDA tensors launch
+    `gnn_message_kernel`; CPU tensors run the plain version. Senders are
+    not checked here (`fused_gnn_forward` checks them): each must lie in
+    [-1, n_pad)."""
+    if not ew.is_cuda:
+        return gnn_message_plain(rel_pre, ew, seg_off, seg_slot, send_idx, n_pad)
+    B, E = send_idx.shape
+    F = ew.shape[1] // 2
+    want = {"rel_pre": (rel_pre, torch.float32, (B * E, F)),
+            "ew": (ew, torch.float32, (B * n_pad, 2 * F)),
+            "seg_off": (seg_off, torch.int32, (B, n_pad + 1)),
+            "seg_slot": (seg_slot, torch.int32, (B, E)),
+            "send_idx": (send_idx, torch.int32, (B, E))}
+    for name, (t, dtype, shape) in want.items():
+        if (t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.device != ew.device):
+            raise ValueError(f"gnn_message: {name} must be a contiguous {dtype} {shape} "
+                             f"tensor on {ew.device}, got {t.dtype} {tuple(t.shape)}")
+    agg = torch.empty((B * n_pad, F), dtype=torch.bfloat16, device=ew.device)
+    err = LIBRARY.load().gsdx_gnn_message(
+        rel_pre.data_ptr(), ew.data_ptr(), seg_off.data_ptr(), seg_slot.data_ptr(),
+        send_idx.data_ptr(), agg.data_ptr(), B, E, n_pad, F,
+        torch.cuda.current_stream(ew.device).cuda_stream)
+    LIBRARY.check(err, "gnn_message")
+    LAUNCHES["gnn_message"] += 1
+    return agg
 
 
 def _check_inputs(packed: PackedGNN, **tensors) -> torch.device:
@@ -467,15 +597,12 @@ def _launch_forward(packed: PackedGNN, attrs, action, state_t, g, recv_idx,
     rel_pre, _ = gnn_gemm(h, packed.wt_r0, bias=bias[3])
     del h
 
-    agg = empty(Mn, F, dtype=torch.bfloat16)
+    # the receiver segments, once for the three rounds
+    seg_off, seg_slot = gnn_segments(recv_idx, n_pad)
     effect, effect16 = enc_p, enc_p16
     for r in range(pstep):
         ew, _ = gnn_gemm(effect16, packed.wt_rs)  # (Mn, 2F): ewr | ews
-        err = lib.gsdx_gnn_message(rel_pre.data_ptr(), ew.data_ptr(),
-                                   recv_idx.data_ptr(), send_idx.data_ptr(),
-                                   agg.data_ptr(), B, E, n_pad, F, stream)
-        LIBRARY.check(err, "gnn_message")
-        LAUNCHES["gnn_message"] += 1
+        agg = gnn_message(rel_pre, ew, seg_off, seg_slot, send_idx, n_pad)
         # the last round's effect is read only by the head's product
         effect, effect16 = gnn_gemm(agg, packed.wt_p1, r1=node_pre, r2=effect,
                                     relu=True, f32=r < pstep - 1, bf16=True)
@@ -501,14 +628,38 @@ def forward_flops(n_rows: int, n_edges: int, F: int, nd: int, pstep: int,
     return node_first + edge_first + mlp + rounds + head
 
 
-def forward_bytes(n_rows: int, n_edges: int, F: int, nd: int, pstep: int) -> dict:
+def message_counts(recv_idx: torch.Tensor, send_idx: torch.Tensor, n_pad: int) -> dict:
+    """What a message round of these (B, E) slots must read, as
+    `forward_bytes` takes it: the slots that reach an aggregation
+    (``n_messages``), the distinct receivers among them (the ewr rows
+    read, ``n_receivers``) and the distinct senders (the ews rows read,
+    ``n_senders``)."""
+    B = recv_idx.shape[0]
+    base = torch.arange(B, device=recv_idx.device)[:, None] * n_pad
+    msg = (recv_idx >= 0) & (recv_idx < n_pad)
+    used = msg & (send_idx >= 0)
+    return {"n_messages": int(msg.sum()),
+            "n_receivers": int(torch.unique((recv_idx + base)[msg]).numel()),
+            "n_senders": int(torch.unique((send_idx + base)[used]).numel())}
+
+
+def forward_bytes(n_rows: int, n_edges: int, F: int, nd: int, pstep: int,
+                  n_messages: int | None = None, n_samples: int = 1,
+                  n_receivers: int | None = None, n_senders: int | None = None) -> dict:
     """Device-memory bytes of one forward in this unfused design, by
     kernel: each launch reads its inputs once and writes its outputs once
     (weights and indices included), for ``n_rows`` node rows and
-    ``n_edges`` edge rows, with the activation types of
-    `fused_gnn_forward`."""
-    bf, f4 = 2, 4
+    ``n_edges`` edge rows (slots) of ``n_samples`` samples, with the
+    activation types of `fused_gnn_forward`. A message round reads the
+    rel_pre rows and indices only of the ``n_messages`` slots that reach an
+    aggregation, the ewr rows of their ``n_receivers`` receivers and the
+    ews rows of their ``n_senders`` senders (default all; `message_counts`
+    counts them)."""
+    bf, f4, i4 = 2, 4, 4
     Mn, Me = n_rows, n_edges
+    n_messages = n_edges if n_messages is None else n_messages
+    n_receivers = n_rows if n_receivers is None else n_receivers
+    n_senders = n_rows if n_senders is None else n_senders
 
     def gemm(M, N, residuals=0, f32=False, bf16=False, bias=True):
         return (M * F * bf + N * F * bf + bias * N * f4 + residuals * M * N * f4
@@ -521,12 +672,18 @@ def forward_bytes(n_rows: int, n_edges: int, F: int, nd: int, pstep: int) -> dic
     products = (gemm(Mn, F, bf16=True) + gemm(Mn, F, f32=True, bf16=True)
                 + gemm(Mn, F, f32=True) + 2 * gemm(Me, F, bf16=True) + gemm(Me, F, f32=True)
                 + 2 * gemm(Mn, F, bf16=True) + gemm(Mn, 8, f32=True))
+    seg_off = (Mn + n_samples) * i4
+    # receivers in; segment starts and slots out
+    segments = Me * i4 + seg_off + Me * i4
     message = 0
     for r in range(pstep):
         products += gemm(Mn, 2 * F, f32=True, bias=False)
         products += gemm(Mn, F, residuals=2, f32=r < pstep - 1, bf16=True, bias=False)
-        message += Me * F * f4 + Mn * 2 * F * f4 + 2 * Me * 4 + Mn * F * bf
+        # rel_pre rows, slots and senders of the messages; the receivers'
+        # ewr and the senders' ews rows, the segment starts; agg bf16 out
+        message += (n_messages * (F * f4 + 2 * i4) + (n_receivers + n_senders) * F * f4
+                    + seg_off + Mn * F * bf)
     # edge layer 1: nr | ns, g, two index vectors in; h1 bf16 out
     edge_first = Mn * 2 * F * f4 + Mn * f4 + 2 * Me * 4 + 2 * F * f4 + Me * F * bf
     return {"gnn_linear": linear, "gnn_gemm": products, "gnn_edge_first": edge_first,
-            "gnn_message": message}
+            "gnn_segments": segments, "gnn_message": message}

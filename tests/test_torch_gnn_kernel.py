@@ -95,16 +95,19 @@ def test_kernel_matches_plain(cuda, B, n_pad, n_obj, E, n_edges, layout):
     rng = np.random.default_rng(B * 1000 + E)
     packed = G.pack_gnn_params(_random_tree(rng, 512, 3, layout), device=cuda)
     ins = _inputs(rng, B, n_pad, n_obj, E, n_edges, 3, cuda)
-    n0, g0 = G.LAUNCHES["gnn_forward"], G.LAUNCHES["gnn_gemm"]
+    before = dict(G.LAUNCHES)
     out = G.fused_gnn_forward(packed, *ins)
-    assert G.LAUNCHES["gnn_forward"] == n0 + 1
-    assert G.LAUNCHES["gnn_gemm"] == g0 + 15  # every product of depth F
+    # every product of depth F on the GEMM; the segments once, a message a round
+    want = {"gnn_forward": 1, "gnn_linear": 3, "gnn_gemm": 15, "gnn_edge_first": 1,
+            "gnn_segments": 1, "gnn_message": 3}
+    assert {k: G.LAUNCHES[k] - before[k] for k in want} == want
     _check_forward(out, packed, ins)
 
 
 def test_unordered_slots_and_refusals(cuda):
-    """Slots in any order (the message kernel scans every slot), and a CUDA
-    input the kernels do not take raises instead of falling back."""
+    """Slots in any order (the segments kernel sorts them by receiver, and
+    each message row walks its segment in slot order), and a CUDA input the
+    kernels do not take raises instead of falling back."""
     rng = np.random.default_rng(3)
     packed = G.pack_gnn_params(_random_tree(rng, 512, 3, "rope"), device=cuda)
     ins = _inputs(rng, 2, 128, 60, 320, 300, 3, cuda)
@@ -139,12 +142,15 @@ EPILOGUES = {
 
 
 @pytest.mark.parametrize("M,N,K", [(256, 128, 512), (1000, 512, 512), (63000, 512, 512),
-                                   (1000, 1024, 512), (1000, 8, 512), (300, 256, 1024)])
+                                   (16000, 512, 512), (1000, 1024, 512), (1000, 8, 512),
+                                   (300, 256, 1024)])
 @pytest.mark.parametrize("epilogue", list(EPILOGUES))
 def test_gemm_matches_plain(cuda, M, N, K, epilogue):
     """The tensor-core GEMM against the same bf16 operands multiplied in
-    f64, ragged M (1000, 63,000 rows: TMA fills the last tile with zeros)
-    and N = 8 (a weight copy padded to 128 rows) included."""
+    f64, ragged M (1000, 63,000 rows: TMA fills the last tile with zeros
+    and clips the stores) and N = 8 (a weight copy padded to 128 rows)
+    included; 128x256 tiles where N is a multiple of 256, 128x128 else.
+    The launch is persistent: min(SMs, tiles) blocks."""
     use_bias, n_res, relu, outs = EPILOGUES[epilogue]
     g = torch.Generator(device=cuda).manual_seed(M + N + K)
     x = torch.randn(M, K, device=cuda, generator=g).to(torch.bfloat16)
@@ -158,6 +164,10 @@ def test_gemm_matches_plain(cuda, M, N, K, epilogue):
     y, yb = G.gnn_gemm(x, wt, N, bias=bias, r1=r1, r2=r2, relu=relu,
                        f32=outs != "bf16", bf16=outs != "f32")
     assert G.LAUNCHES["gnn_gemm"] == n0 + 1
+    launch = G.gemm_last_launch()
+    assert launch["block_n"] == 128 or N % 256 == 0
+    tiles = -(-M // launch["block_m"]) * -(-N // launch["block_n"])
+    assert launch["tiles"] == tiles and launch["grid"] == min(launch["sms"], tiles)
     torch.cuda.synchronize()
     ref = x.double() @ w.double().t()
     for extra in (bias, r1, r2):
@@ -184,3 +194,60 @@ def test_gemm_matches_plain(cuda, M, N, K, epilogue):
         assert ((yb.double() - ref).abs() <= bound * (1 + 2.0 ** -8)
                 + 2.0 ** -8 * ref.abs()).all()
     assert (y is None) == (outs == "bf16") and (yb is None) == (outs == "f32")
+
+
+def _segment_inputs(case, device):
+    """recv, send (B, E) int32 and n_pad of one slot layout."""
+    rng = np.random.default_rng(len(case))
+    B, E, n_pad, n_obj, n_edges = {"sorted": (6, 504, 128, 101, 470),
+                                   "permuted": (6, 504, 128, 101, 470),
+                                   "cloth": (4, 1200, 256, 151, 1150),
+                                   "one_receiver": (3, 504, 128, 101, 504),
+                                   "empty": (2, 504, 128, 101, 0),
+                                   "out_of_range": (3, 504, 128, 101, 470)}[case]
+    recv = np.full((B, E), -1, np.int32)
+    for b in range(B):
+        recv[b, :n_edges] = (np.full(n_edges, 100) if case == "one_receiver"
+                             else np.sort(rng.integers(0, n_obj, n_edges)))
+    if case == "permuted":
+        recv = recv[:, rng.permutation(E)]
+    if case == "out_of_range":  # receivers at and past n_pad: empty slots
+        recv[:, 5::9] = n_pad + rng.integers(0, 1 << 20, recv[:, 5::9].shape)
+    send = np.where(recv >= 0, rng.integers(-1, n_obj, recv.shape), -1).astype(np.int32)
+    return torch.as_tensor(recv, device=device), torch.as_tensor(send, device=device), n_pad
+
+
+SEGMENT_CASES = ["sorted", "permuted", "cloth", "one_receiver", "empty", "out_of_range"]
+
+
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_segments_match_plain(cuda, case):
+    recv, _, n_pad = _segment_inputs(case, cuda)
+    n0 = G.LAUNCHES["gnn_segments"]
+    seg_off, seg_slot = G.gnn_segments(recv, n_pad)
+    assert G.LAUNCHES["gnn_segments"] == n0 + 1
+    ref_off, ref_slot = G.receiver_segments_plain(recv, n_pad)
+    torch.cuda.synchronize()
+    assert torch.equal(seg_off, ref_off) and torch.equal(seg_slot, ref_slot)
+
+
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_message_bit_equal_to_plain(cuda, case):
+    """The message kernel adds each segment in slot order, as its plain
+    version does one padded segment column at a time: the same f32 adds,
+    so the same bits, on every run."""
+    recv, send, n_pad = _segment_inputs(case, cuda)
+    B, E = recv.shape
+    F = 512
+    g = torch.Generator(device=cuda).manual_seed(E)
+    rel_pre = torch.randn(B * E, F, device=cuda, generator=g)
+    ew = torch.randn(B * n_pad, 2 * F, device=cuda, generator=g)
+    seg = G.gnn_segments(recv, n_pad)
+    n0 = G.LAUNCHES["gnn_message"]
+    agg = G.gnn_message(rel_pre, ew, *seg, send, n_pad)
+    again = G.gnn_message(rel_pre, ew, *seg, send, n_pad)
+    assert G.LAUNCHES["gnn_message"] == n0 + 2
+    ref = G.gnn_message_plain(rel_pre, ew, *seg, send, n_pad)
+    torch.cuda.synchronize()
+    assert agg.dtype == torch.bfloat16 and agg.shape == (B * n_pad, F)
+    assert torch.equal(agg, ref) and torch.equal(agg, again)

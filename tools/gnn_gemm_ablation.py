@@ -1,22 +1,42 @@
-"""What bounds the GNN's tensor-core GEMM (gsdx_torch/csrc/gnn_gemm.cu) on an
-NVIDIA GPU: its time against the depth of the load ring and the number of
-blocks an SM holds, each with and without the epilogue's stores, at the
-rope chunk's shapes, beside `torch.matmul` of the same bf16 operands.
+"""What holds the GNN's tensor-core GEMM (gsdx_torch/csrc/gnn_gemm.cu) back on
+an NVIDIA GPU: its time under each of the design's knobs, at the products
+of the fused forward of a 125-sample rope chunk, beside `torch.matmul` of
+the same bf16 operands.
 
-    python3 tools/gnn_gemm_ablation.py
+    python3 tools/gnn_gemm_ablation.py [--reps 30] [--variants NAME,NAME,...]
 
-Each variant is the committed source with one constant changed, built by
-nvcc into build/gnn_gemm_ablation/. All variants must give bit-identical
-outputs. Every time is the mean of 30 CUDA-event timed calls, taken twice
-in the order shipped, variants, variants reversed, shipped. Prints one JSON
-line per shape, after the card's name and power limit.
+The knobs are the `constexpr` lines at the top of gnn_gemm.cu: the tile
+width (128x128 against the shipped choice, 128x256 wherever N allows it),
+the ring's shared memory (its depth), the epilogue (stores from the
+registers against the shipped one, staged through shared memory and
+stored by TMA), and a block a tile against the persistent grid. (Ping-pong
+consumers, each on its own 64-row tiles, and a cluster of 2 blocks along M
+multicasting the weight tile were measured and gained nothing, so the
+kernel no longer has them: PERF.md keeps their times.) Each variant is the
+committed source with some of those lines changed, built by nvcc (all at
+once) into build/gnn_gemm_ablation/. "earlier layout" is as close to the
+kernel's earlier, non-persistent design as the knobs come: 128x128 tiles,
+3 stages, register stores, a block a tile (but one block an SM, where
+that design fitted two).
+
+Every variant must give bit-identical outputs: the K sum runs in ascending
+K in 16-deep wgmma steps in all of them. Each time is the mean of --reps
+calls queued back to back between two CUDA events, taken twice (variants
+in the order listed, then reversed), and again without outputs (the
+epilogue computes and stores nothing: the main loop alone). Prints the
+card's name and power limit, then one JSON line per shape with each
+variant's times and launch (grid, tile, stages).
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
+import re
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -27,23 +47,38 @@ sys.path.insert(0, str(REPO))
 from gsdx_torch.kernels import _build  # noqa: E402
 from gsdx_torch.kernels import gnn_forward as G  # noqa: E402
 
-# (stages, blocks an SM): the shipped ring, and one block an SM with deeper
-# rings (two blocks of 4 or more stages do not fit in shared memory)
-VARIANTS = {"3 stages x 2 blocks (shipped)": (3, 2), "4 stages x 1 block": (4, 1),
-            "6 stages x 1 block": (6, 1)}
-SHAPES = ((63000, 512), (16000, 512), (16000, 1024))  # (M, N), K = 512
+# Knob settings of each variant, over the committed source's.
+VARIANTS = {
+    "shipped": {},
+    "128x128 tiles": {"FORCE_BN": "128"},
+    "ring 96 KB": {"RING_BYTES": "96 * 1024"},
+    "ring 144 KB": {"RING_BYTES": "144 * 1024"},
+    "register stores": {"TMA_STORE": "false"},
+    "a block a tile": {"PERSISTENT": "false"},
+    "earlier layout": {"FORCE_BN": "128", "RING_BYTES": "96 * 1024", "TMA_STORE": "false",
+                       "PERSISTENT": "false"},
+}
+assert not any("," in name for name in VARIANTS), "--variants splits names on commas"
+# (name, M, N, epilogue) with K = 512, the epilogues the forward gives them
+SHAPES = (("w2r, edge rows", 63000, 512, {"bias": True, "relu": True, "out": "bf16"}),
+          ("w2p, node rows", 16000, 512, {"bias": True, "relu": True, "out": "bf16"}),
+          ("wp1, a round", 16000, 512, {"res": 2, "relu": True, "out": "both"}),
+          ("wt_rs, a round", 16000, 1024, {"out": "f32"}),
+          ("wh3, the head", 16000, 8, {"bias": True, "out": "f32"}))
+K = 512
 
 
-def variant_source(stages: int, blocks: int) -> str:
+def variant_source(knobs: dict) -> str:
     src = (_build.CSRC / "gnn_gemm.cu").read_text()
-    out = src.replace("constexpr int STAGES = 3;", f"constexpr int STAGES = {stages};")
-    out = out.replace("__launch_bounds__(THREADS, 2)", f"__launch_bounds__(THREADS, {blocks})")
-    if (stages, blocks) != (3, 2) and out == src:
-        raise RuntimeError("gnn_gemm.cu no longer has the constants this script varies")
-    return out
+    for name, value in knobs.items():
+        pat = re.compile(rf"^(constexpr \w+ {name} = )[^;]+;", re.M)
+        if not pat.search(src):
+            raise RuntimeError(f"gnn_gemm.cu no longer has the knob {name}")
+        src = pat.sub(lambda m: f"{m.group(1)}{value};", src)
+    return src
 
 
-def mean_ms(fn, reps: int = 30) -> float:
+def mean_ms(fn, reps: int) -> float:
     for _ in range(3):
         fn()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -55,57 +90,84 @@ def mean_ms(fn, reps: int = 30) -> float:
     return a.elapsed_time(b) / reps
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--reps", type=int, default=30)
+    ap.add_argument("--variants", default=",".join(VARIANTS),
+                    help="comma-separated variant names, in the order to run")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("gnn_gemm_ablation: no CUDA device", file=sys.stderr)
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0], flush=True)
+    names = [v for v in args.variants.split(",") if v]
+    unknown = [v for v in names if v not in VARIANTS]
+    if unknown:
+        raise SystemExit(f"unknown variants {unknown}; known: {list(VARIANTS)}")
+    sources = {name: variant_source(VARIANTS[name]) for name in names}
     out_dir = REPO / "build" / "gnn_gemm_ablation"
     out_dir.mkdir(parents=True, exist_ok=True)
     libs = {}
-    for i, (name, (stages, blocks)) in enumerate(VARIANTS.items()):
+    for i, (name, src) in enumerate(sources.items()):
         path = out_dir / f"gnn_gemm_{i}.cu"
-        path.write_text(variant_source(stages, blocks))
-        lib = _build.CudaLibrary(f"gnn_gemm_ablation_{i}", str(path),
-                                 G.GEMM_LIBRARY.functions, G.GEMM_LIBRARY.error_string)
-        libs[name] = lib.load()
+        path.write_text(src)
+        libs[name] = _build.CudaLibrary(f"gnn_gemm_ablation_{i}", str(path),
+                                        G.GEMM_LIBRARY.functions, G.GEMM_LIBRARY.error_string)
+    with ThreadPoolExecutor(len(libs)) as pool:
+        list(pool.map(lambda lib: lib.build(), libs.values()))
+    libs = {name: lib.load() for name, lib in libs.items()}
 
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
     g = torch.Generator(device=dev).manual_seed(0)
     order = list(libs) + list(reversed(list(libs)))
-    for M, N in SHAPES:
-        x = torch.relu(torch.randn(M, 512, device=dev, generator=g)).to(torch.bfloat16)
-        wt = (torch.randn(N, 512, device=dev, generator=g) / 512 ** 0.5).to(torch.bfloat16)
-        bias = torch.randn(N, device=dev, generator=g)
-        y = torch.empty(M, N, device=dev, dtype=torch.bfloat16)
+    for label, M, N, epi in SHAPES:
+        x = torch.relu(torch.randn(M, K, device=dev, generator=g)).to(torch.bfloat16)
+        rows = -(-N // G.GEMM_BN) * G.GEMM_BN
+        w = (torch.randn(N, K, device=dev, generator=g) / K ** 0.5).to(torch.bfloat16)
+        wt = torch.cat([w, w.new_zeros(rows - N, K)]).contiguous()
+        bias = torch.randn(N, device=dev, generator=g) if epi.get("bias") else None
+        res = [torch.randn(M, N, device=dev, generator=g) for _ in range(epi.get("res", 0))]
+        r1, r2 = (res + [None, None])[:2]
+        yf = torch.empty(M, N, device=dev) if epi["out"] in ("f32", "both") else None
+        yb = (torch.empty(M, N, device=dev, dtype=torch.bfloat16)
+              if epi["out"] in ("bf16", "both") else None)
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         ref, row = None, {}
         for name in order:
             lib = libs[name]
 
-            def run(store: bool = True, lib=lib) -> None:
-                # bias, ReLU and a bf16 output, as the edge layers take them;
-                # without an output the epilogue computes and stores nothing
-                err = lib.gsdx_gnn_gemm(x.data_ptr(), wt.data_ptr(), M, N, 512,
-                                        bias.data_ptr(), None, None, None,
-                                        y.data_ptr() if store else None, 1, stream)
+            def run(store: bool = True, lib=lib, name=name) -> None:
+                err = lib.gsdx_gnn_gemm(x.data_ptr(), wt.data_ptr(), M, N, K, ptr(bias),
+                                        ptr(r1), ptr(r2), ptr(yf) if store else None,
+                                        ptr(yb) if store else None, int(epi.get("relu", 0)),
+                                        stream)
                 if err:
                     raise RuntimeError(f"{name}: launch failed ({err})")
 
-            run()
-            torch.cuda.synchronize()
+            try:
+                run()
+                torch.cuda.synchronize()
+            except Exception as e:
+                raise RuntimeError(f"variant {name!r} failed at {label}") from e
+            outs = [t.clone() for t in (yf, yb) if t is not None]
             if ref is None:
-                ref = y.clone()
-            elif not torch.equal(y, ref):
-                raise AssertionError(f"{name} differs from the shipped kernel")
-            row.setdefault(name, {}).setdefault("ms", []).append(mean_ms(run))
-            row[name].setdefault("ms_without_stores", []).append(
-                mean_ms(lambda: run(False)))
-        w_kn = wt.t()
-        row["torch.matmul (bf16 out)"] = {"ms": [mean_ms(lambda: torch.matmul(x, w_kn))]}
-        print(json.dumps({"M": M, "N": N, "K": 512, "variants": row}), flush=True)
+                ref = outs
+            elif not all(torch.equal(a, b) for a, b in zip(outs, ref)):
+                raise AssertionError(f"{name} differs from {order[0]} at {label}")
+            entry = row.setdefault(name, {"ms": [], "ms_without_outputs": []})
+            out = (ctypes.c_int * len(G.GEMM_LAUNCH_FIELDS))()
+            lib.gsdx_gnn_gemm_last_launch(ctypes.cast(out, ctypes.c_void_p))
+            entry["launch"] = dict(zip(G.GEMM_LAUNCH_FIELDS, out))
+            entry["ms"].append(mean_ms(run, args.reps))
+            entry["ms_without_outputs"].append(mean_ms(lambda: run(False), args.reps))
+        w_kn = wt[:N].t()
+        row["torch.matmul (bf16 out)"] = {"ms": [mean_ms(lambda: torch.matmul(x, w_kn),
+                                                         args.reps)]}
+        print(json.dumps({"shape": label, "M": M, "N": N, "K": K, "epilogue": epi,
+                          "variants": row}), flush=True)
     return 0
 
 
