@@ -93,7 +93,9 @@ Phases, each printing one JSON line:
      `python -m gsdx_torch.apps.plan --env fake` on the committed rope
      checkpoint, and `apps.preprocess`, `apps.train` (1 epoch of 5 train and
      2 valid iterations) and `apps.predict` (4 steps, 1 camera) on a
-     temporary two-episode tree from a temporary working directory; then
+     temporary two-episode tree from a temporary working directory, and
+     `apps.train --dp` under torchrun (one rank, NCCL; 1 epoch of 5
+     iterations), whose latest.ckpt must load; then
      `apps.sim_real` (1 trial), `apps.sim_real_app` (clicks, run real, save
      for the demo) and `apps.demo --assets` on the captured bundle, 60 fit
      iterations each: frame directories, the .splat files and the bundle
@@ -120,11 +122,33 @@ Phases, each printing one JSON line:
      -> MPPI through the fused GNN kernel (launches > 0) -> `RealEnv.step`
      (2 calls) -> `FakeArm`; the camera processes joined after `stop`;
      each action's seconds by stage and each camera's put rate.
+ 16. dist (after the CLIs): `gsdx_torch.dist` in spawned worlds, each joined
+     within DIST_TIMEOUT. A world of one on NCCL: one DP train step at rope
+     width (batch 16) against the single-device step from the same init
+     (every param within 1e-6), `sharded_composite` against `_Composite`
+     bit for bit, and each step's ms (DDP's overhead). Two gloo ranks sharing
+     cuda:0 (NCCL refuses two ranks on one device): the DP step (8 a rank)
+     against the single step (loss rtol 1e-5, gradients REL_TOL, params 1e-5
+     but the entries whose two gradients alone move them further through
+     Adam's first step, counted and printed); `sharded_composite` on
+     the 8192-Gaussian 720p tile inputs with and without presort, forward
+     and backward, bit-equal to the unsharded kernels and, on the rank's
+     rows, within REL_TOL of the plain version with the same tile ids;
+     `make_sharded_tracking_step` at 4 cameras x 1280x720, capacity 8192,
+     t=0 and t=1, within REL_TOL of the mean of the single-device
+     per-camera loss and gradient; one sample-sharded MPPI iteration at rope
+     width (1000 samples, 500 a rank) on one injected draw against the
+     unsharded planner (act_seq 1e-5, best reward rtol 1e-5). Each rank's
+     compositor (#1, #1p, #2, #2p) and GNN launches, counted around the
+     sharded calls alone (set to 0 just before each, read just after,
+     before its unsharded reference), must be > 0; the gloo ranks' times
+     are labelled as two ranks sharing one card.
 
 Then each phase's seconds; the run fails if it wrote into the checkout.
 Before the result, every process the run left (multiprocessing's resource
-tracker, which `real_env`'s shared memory starts, and any orphan, since the
-script makes itself their subreaper) is stopped and reaped, and listed in a
+tracker, which `real_env`'s shared memory and the `dist` phase's spawned
+ranks start, a rank left by a failed world, and any orphan, since the script
+makes itself their subreaper) is stopped and reaped, and listed in a
 `processes` line; after a failure too.
 The line before the last holds the kernel table; the last line is
 {"ok": true, "device": {...}}. Any failure exits non-zero with no result.
@@ -132,6 +156,7 @@ The line before the last holds the kernel table; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -2240,8 +2265,11 @@ def rope_cli_yaml(text: str) -> str:
 def phase_learn_cli() -> dict:
     """`apps.preprocess`, `apps.train` and `apps.predict` (4 steps, 1
     camera) on a two-episode tree of the committed episode, from a
-    temporary working directory."""
-    from gsdx_torch.io.config import parse_yaml
+    temporary working directory; then `apps.train --dp` under torchrun (one
+    rank, NCCL), whose latest.ckpt must load."""
+    from gsdx_torch.dynamics.model import DynamicsPredictor, flax_params
+    from gsdx_torch.io.checkpoint import load_checkpoint
+    from gsdx_torch.io.config import load_config, parse_yaml
 
     with open(ROPE_YAML) as f:
         text = rope_cli_yaml(f.read())
@@ -2280,8 +2308,401 @@ def phase_learn_cli() -> dict:
             raise AssertionError(f"the train CLI left {ckpts}")
         if pngs != [f"frame_{t:04d}.png" for t in range(4)]:
             raise AssertionError(f"the predict CLI left {pngs}")
-    row = {"phase": "cli_learn", "seconds": seconds, "checkpoints": ckpts, "frames": pngs}
+        latest = os.path.join(tmp, out_dir, "checkpoints", "latest.ckpt")
+        os.remove(latest)
+        t0 = time.perf_counter()
+        dp = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             "--nproc-per-node=1", "-m", "gsdx_torch.apps.train",
+                             "--config", "rope.yaml", "--dp"],
+                            check=True, cwd=tmp, env=env, stdout=subprocess.PIPE, text=True,
+                            timeout=600)
+        seconds["train_dp"] = time.perf_counter() - t0
+        _, model_cfg, _ = load_config(os.path.join(tmp, "rope.yaml"))
+        load_checkpoint(latest, target=flax_params(DynamicsPredictor(model_cfg)))
+        dp_out = dp.stdout.strip().splitlines()
+    row = {"phase": "cli_learn", "seconds": seconds, "checkpoints": ckpts, "frames": pngs,
+           "train_dp_stdout": dp_out, "train_dp_checkpoint_loads": True}
     emit(row)
+    return row
+
+
+# --------------------------------------------------------------------------
+# dist: gsdx_torch.dist on one card
+# --------------------------------------------------------------------------
+
+DIST_TIMEOUT = 300.0  # seconds a spawned world may take
+COMPOSITOR_VARIANTS = ("fwd", "fwd_presort", "bwd", "bwd_presort")  # #1, #1p, #2, #2p
+
+
+def rope_train_setup():
+    """configs/rope.yaml at full width and a sampler over the committed
+    tracked rope episode (its trajectory and frame pairs) on the card."""
+    from gsdx_torch.graph.dataset import EpisodeStore, GraphSampler
+    from gsdx_torch.io.config import load_config
+    from gsdx_torch.io.episodes import eef_world_positions, load_metadata
+
+    train_cfg, model_cfg, data_cfg = load_config(ROPE_YAML)
+    traj = np.load(TRAJ)
+    eef = eef_world_positions(os.path.join(PIPELINE, "data"),
+                              load_metadata(os.path.join(PIPELINE, "ckpts/metadata.json")))
+    pairs = np.loadtxt(os.path.join(PIPELINE, "prep/frame_pairs/0.txt")).astype(np.int64)
+    pairs = pairs[pairs.max(1) < len(traj)]
+    pairs = np.concatenate([np.zeros((len(pairs), 1), np.int64), pairs], 1)
+    store = EpisodeStore.from_numpy([traj], [eef], [pairs], device="cuda")
+    return train_cfg, model_cfg, GraphSampler(store, data_cfg, "train")
+
+
+def dist_dp_check(mesh, steps: int = 5, profile: bool = False) -> tuple[dict, list]:
+    """One DP step at rope width against the single-device step from the
+    same init on the same global batch (batch 16): the loss within rtol
+    1e-5, each gradient tensor within REL_TOL of its largest entry, and the
+    params. At a world of one (the all-reduce copies) every param is held
+    to 1e-6. At two ranks every param is held to 1e-5 but those that the
+    two gradients alone move over 5e-6 apart: Adam's first step moves an
+    entry by lr g / (|g| + eps), so a gradient near zero whose two values
+    differ (in sign, or by a share of themselves) moves it by up to 2 lr.
+    The others keep half the tolerance for rounding. The count of the
+    exempt entries, and how many of them changed sign, are printed. Then each step's median
+    ms over ``steps`` more steps and, with ``profile``, where each step's
+    device time goes."""
+    from gsdx_torch.dist import make_dp_train_step, shard_batch
+    from gsdx_torch.dynamics.train import init_params, make_train_step
+
+    train_cfg, model_cfg, sampler = rope_train_setup()
+    batch = sampler.sample(torch.Generator(device="cuda").manual_seed(0),
+                           train_cfg.batch_size)
+    single_model = init_params(model_cfg, 0, "cuda")
+    dp_model = init_params(model_cfg, 0, "cuda")
+    single, _, single_opt = make_train_step(single_model, train_cfg)
+    dp_step, _ = make_dp_train_step(dp_model, train_cfg, mesh)
+    local = shard_batch(batch, mesh)
+    loss_s, _ = single(batch)
+    loss_d, _ = dp_step(local)
+    # the reference optimizer's settings
+    lr, eps = single_opt.param_groups[0]["lr"], single_opt.param_groups[0]["eps"]
+    two_ranks = mesh.shape["data"] > 1
+    tol = 1e-5 if two_ranks else 1e-6
+    diff, held, grad_err, exempt, flips = 0.0, 0.0, 0.0, 0, 0
+    for a, b in zip(single_model.parameters(), dp_model.parameters()):
+        d = (a.detach() - b.detach()).abs()
+        g_max = a.grad.abs().max().clamp_min(1e-30)
+        diff = max(diff, float(d.max()))
+        grad_err = max(grad_err, float((a.grad - b.grad).abs().max() / g_max))
+        if two_ranks:  # the first Adam steps of the two gradients lie over tol / 2 apart
+            loose = lr * (a.grad / (a.grad.abs() + eps)
+                          - b.grad / (b.grad.abs() + eps)).abs() > tol / 2
+        else:
+            loose = torch.zeros_like(d, dtype=torch.bool)
+        exempt += int(loose.sum())
+        flips += int((loose & (a.grad.sign() != b.grad.sign())).sum())
+        held = max(held, float(d[~loose].max()) if (~loose).any() else 0.0)
+    ms_single = [events_ms(lambda: single(batch))[1] for _ in range(steps)]
+    ms_dp = [events_ms(lambda: dp_step(local))[1] for _ in range(steps)]
+    row = {"batch": train_cfg.batch_size, "local_batch": int(local.state.shape[0]),
+           "nf": model_cfg.nf_effect, "loss_single": float(loss_s), "loss_dp": float(loss_d),
+           "params_tol": tol, "params_max_abs_diff_held": held,
+           "params_exempt": exempt, "params_exempt_sign_flips": flips,
+           "params_max_abs_diff": diff, "grad_rel_err": grad_err, "lr": lr,
+           "single_step_ms": float(np.median(ms_single)),
+           "dp_step_ms": float(np.median(ms_dp))}
+    if profile:
+        for name, fn in (("single", lambda: single(batch)), ("dp", lambda: dp_step(local))):
+            prof = device_profile(fn, f"{name} train step, rope width, batch 16", top=8)
+            row[f"profile_{name}"] = {k: prof[k] for k in (
+                "wall_ms_per_call", "device_busy_ms_per_call", "device_idle_share",
+                "launches_per_call", "top_kernels")}
+    failures = []
+    if not abs(row["loss_dp"] - row["loss_single"]) <= 1e-5 * abs(row["loss_single"]):
+        failures.append(f"DP loss {row['loss_dp']} against {row['loss_single']}")
+    if not grad_err <= REL_TOL:
+        failures.append(f"DP gradients differ from the single step's by {grad_err} of "
+                        "their largest entry")
+    if not (held <= tol and diff <= 2 * lr * (1 + 1e-3)):
+        failures.append(f"DP params differ from the single step's by {held} > {tol} "
+                        f"({exempt} entries exempt; all entries {diff})")
+    return row, failures
+
+
+def sharded_launches(fn, launches: dict):
+    """Run ``fn`` (a sharded call) with the compositor's counts set to 0
+    just before it, add the counts read just after into ``launches``, and
+    return fn's result: the reference runs around it are not counted."""
+    from gsdx_torch.kernels import composite as C
+
+    C.reset_launches()
+    out = fn()
+    for k, v in C.LAUNCHES.items():
+        launches[k] = launches.get(k, 0) + v
+    return out
+
+
+def dist_composite_check(mesh, launches: dict) -> tuple[dict, list]:
+    """`sharded_composite` on the 8192-Gaussian 720p tile inputs (n_accum 7),
+    without and with presort, forward and backward, against the unsharded
+    kernels (bit-equal) and, on this rank's rows, against the plain
+    version with the same tile ids (REL_TOL). The sharded calls' compositor
+    launches are added into ``launches``."""
+    from gsdx_torch.dist import sharded_composite
+    from gsdx_torch.dist.mesh import shard_rows
+    from gsdx_torch.kernels.composite import composite_bwd_torch, composite_tiles_torch
+    from gsdx_torch.render.binning import TileGrid
+    from gsdx_torch.render.rasterize import RasterizeConfig, _Composite
+
+    row, failures = {}, []
+    for presort in (False, True):
+        tf, counts, geo = tile_inputs(CAPACITY, original_order=presort)
+        T, tile_h, sub = tf.shape[0], geo["tile_h"], geo["sub_chunk"]
+        grid = TileGrid(H, W, tile_h, geo["tile_w"])
+        cfg = RasterizeConfig(tile_h=tile_h, sub_chunk=sub,
+                              binning="nosort" if presort else "sort")
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        g_acc = torch.randn((T, 7, tile_h * 128), device="cuda", generator=gen)
+        g_lt = torch.randn((T, 1, tile_h * 128), device="cuda", generator=gen)
+
+        def run(fn):
+            f = tf.clone().requires_grad_(True)
+            accum, logt = fn(f)
+            (grad,) = torch.autograd.grad((accum * g_acc).sum() + (logt * g_lt).sum(), f)
+            return accum.detach(), logt.detach(), grad
+
+        sharded = sharded_launches(
+            lambda: run(lambda f: sharded_composite(f, counts, grid, cfg, mesh, n_accum=7)),
+            launches)
+        whole = run(lambda f: _Composite.apply(f, counts, geo, presort, True))
+        equal = [bool(torch.equal(a, b)) for a, b in zip(sharded, whole)]
+        rows = shard_rows(T, mesh)  # no padding at 230 tiles over 1 or 2 ranks
+        ids = torch.arange(T, dtype=torch.int32, device="cuda")[rows].contiguous()
+        plain = dict(tiles_x=grid.tiles_x, tiles_y=grid.tiles_y, tile_h=tile_h,
+                     tile_w=128, n_accum=7, sub_chunk=sub, tile_ids=ids)
+        with torch.no_grad():
+            out_p = composite_tiles_torch(tf[rows], counts[rows], presort=presort, **plain)
+        grad_p = composite_bwd_torch(out_p[4] if presort else tf[rows], counts[rows],
+                                     out_p[2], g_acc[rows], g_lt[rows],
+                                     out_p[3] if presort else None, **plain)
+        err = [float((sharded[0][rows] - out_p[0]).abs().max()),
+               float((sharded[1][rows] - out_p[1]).abs().max())]
+        # the backward's reverse sums in another order: REL_TOL of each
+        # feature row's largest entry
+        scale = grad_p.abs().amax(dim=(0, 2), keepdim=True).clamp_min(1e-30)
+        grad_err = float(((sharded[2][rows] - grad_p) / scale).abs().max())
+        name = "presort" if presort else "sorted"
+        row[name] = {"T": T, "rows": [rows.start, rows.stop], "equal_unsharded": equal,
+                     "plain_max_abs_err": err, "plain_grad_rel_err": grad_err}
+        if not all(equal):
+            failures.append(f"sharded composite ({name}) differs from the unsharded "
+                            f"kernels: accum, logt, grad equal {equal}")
+        close = all(torch.allclose(a, b, rtol=REL_TOL, atol=REL_TOL)
+                    for a, b in ((sharded[0][rows], out_p[0]), (sharded[1][rows], out_p[1])))
+        if not (close and grad_err <= REL_TOL):
+            failures.append(f"sharded composite ({name}) vs the plain version with tile "
+                            f"ids: {err}, grad {grad_err}")
+    return row, failures
+
+
+def dist_tracking_check(mesh, launches: dict) -> tuple[dict, list]:
+    """`make_sharded_tracking_step` at 4 cameras x 1280x720, capacity 8192,
+    t=0 and t=1, against the mean over the cameras of the single-device
+    loss and gradient (REL_TOL of each field's largest entry). The sharded
+    steps' compositor launches are added into ``launches``."""
+    from gsdx_torch.core.gaussians import init_gaussian_params, init_tracking_variables
+    from gsdx_torch.dist import make_sharded_tracking_step
+    from gsdx_torch.track.trainer import GRAD_FIELDS
+    from gsdx_torch.kernels.knn import knn
+    from gsdx_torch.render.rasterize import RasterizeConfig
+    from gsdx_torch.track.losses import LossWeights, tracking_loss
+    from gsdx_torch.track.optimizer import GroupAdam
+    from gsdx_torch.track.trainer import (TrackingConfig, initialize_per_timestep,
+                                          initialize_post_first_timestep)
+
+    cams, ims, segs, noisy = slice_inputs()
+    sq, _ = knn(torch.as_tensor(noisy[:, :3], device="cuda"), 3)
+    params = init_gaussian_params(noisy, sq.mean(-1).cpu().numpy(), capacity=CAPACITY,
+                                  device="cuda")
+    # random rotations and anisotropic scales: with identity quaternions and
+    # isotropic scales the rotation gradient is rounding noise
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = dataclasses.replace(
+        params, unnorm_rotations=torch.randn(CAPACITY, 4, device="cuda", generator=gen),
+        log_scales=params.log_scales + torch.rand(CAPACITY, 3, device="cuda",
+                                                  generator=gen) - 0.5)
+    num_knn = TrackingConfig().num_knn
+    variables = init_tracking_variables(CAPACITY, num_knn, 1.0, device="cuda")
+    v1 = initialize_post_first_timestep(params, variables, num_knn)
+    p1, v1, _ = initialize_per_timestep(params, v1, GroupAdam().init(params))
+    cfg, weights = RasterizeConfig(), LossWeights()
+    row, failures = {}, []
+    for t, (p, v) in enumerate(((params, variables), (p1, v1))):
+        step = make_sharded_tracking_step(cfg, mesh, weights, is_initial=t == 0)
+        m2d = torch.zeros(CAPACITY, 2, device="cuda")
+        (loss, (g_params, g_m2d)), ms = sharded_launches(
+            lambda: events_ms(lambda: step(p, m2d, cams, ims[t], segs[t], v)), launches)
+        leaves = {f: getattr(p, f).detach().requires_grad_(True) for f in GRAD_FIELDS}
+        pl = dataclasses.replace(p, **leaves)
+        m = m2d.clone().requires_grad_(True)
+        total = sum(tracking_loss(pl, m, cams[c], ims[t][c], segs[t][c], v, weights,
+                                  is_initial_timestep=t == 0, raster_cfg=cfg)[0]
+                    for c in range(N_CAMS)) / N_CAMS
+        grads = torch.autograd.grad(total, [*leaves.values(), m])
+        errs = {}
+        for name, got, want in [*((f, getattr(g_params, f), g)
+                                   for f, g in zip(GRAD_FIELDS, grads)),
+                                ("m2d", g_m2d, grads[-1])]:
+            errs[name] = float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+        loss_err = abs(float(loss) - float(total.detach())) / abs(float(total.detach()))
+        row[f"t{t}"] = {"loss": float(loss), "loss_single": float(total.detach()),
+                        "loss_rel_err": loss_err, "grad_rel_err": errs, "step_ms": ms}
+        if not (loss_err <= REL_TOL and max(errs.values()) <= REL_TOL):
+            failures.append(f"sharded tracking t={t}: loss {loss_err}, grads {errs}")
+    return row, failures
+
+
+def dist_mppi_check(mesh) -> tuple[dict, list]:
+    """One sample-sharded MPPI iteration at rope width (trained weights, 100
+    particles, 1000 samples, each rank's share in repeat-sorted chunks of
+    125, the main path's chunk) on one injected draw, against the
+    unsharded planner on that draw."""
+    from gsdx_torch.kernels import gnn_forward as G
+    from gsdx_torch.plan.cost import running_cost
+    from gsdx_torch.plan.dynamics_rollout import RolloutSpec, make_batched_rollout
+    from gsdx_torch.plan.planner import MPPIConfig, Planner
+    from gsdx_torch.realworld.env import WORKSPACE_BBOX
+
+    model = rope_model()
+    frames = trajectory_particles(100)
+    state, target = frames[0].contiguous(), frames[12].contiguous()
+    bbox = torch.as_tensor(WORKSPACE_BBOX, device="cuda")
+
+    def evaluate(ss, aa, s):
+        return running_cost(ss, aa, s, target, bbox)
+
+    cfg = MPPIConfig(n_sample=1000, n_update_iter=1)
+    n = mesh.shape["data"]
+    sharded = Planner(cfg, make_batched_rollout(
+        model, RolloutSpec(**dict(PLAN_SPEC, sort_chunks=cfg.n_sample // n // 125))),
+        evaluate, device="cuda", mesh=mesh)
+    single = Planner(cfg, make_batched_rollout(model, RolloutSpec(**PLAN_SPEC)), evaluate,
+                     device="cuda")
+    init = torch.tensor([[0.3, 0.0, 0.0, 10.0]], device="cuda")
+    draw = torch.rand((cfg.n_sample, 1, 4), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(7))
+    G.reset_launches()
+    out_s = sharded.trajectory_optimization(None, state, init, draws=[draw])
+    launches = dict(G.LAUNCHES)
+    out_u = single.trajectory_optimization(None, state, init, draws=[draw])
+    # each again, warm
+    _, ms_s = events_ms(lambda: sharded.trajectory_optimization(None, state, init,
+                                                                 draws=[draw]))
+    _, ms_u = events_ms(lambda: single.trajectory_optimization(None, state, init,
+                                                                draws=[draw]))
+    act_err = float((out_s["act_seq"] - out_u["act_seq"]).abs().max())
+    rew = (float(out_s["best_reward"]), float(out_u["best_reward"]))
+    row = {"n_sample": cfg.n_sample, "local_samples": cfg.n_sample // n,
+           "launches": launches, "act_seq_max_abs_err": act_err, "best_reward": rew,
+           "sharded_iteration_ms": ms_s, "unsharded_iteration_ms": ms_u}
+    failures = []
+    if not (act_err <= 1e-5 and abs(rew[0] - rew[1]) <= 1e-5 * abs(rew[1])):
+        failures.append(f"sharded MPPI: act_seq {act_err}, best reward {rew}")
+    if any(v <= 0 for v in launches.values()):
+        failures.append(f"a GNN kernel never launched in the sharded MPPI: {launches}")
+    return row, failures
+
+
+def dist_result(out_dir: str, rank: int, row: dict, failures: list) -> None:
+    """Write a rank's row, then fail the rank if a check failed."""
+    row["failures"] = failures
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(row, f)
+    if failures:
+        raise AssertionError("; ".join(failures))
+
+
+def dist_nccl_rank(rank: int, world: int, out_dir: str) -> None:
+    """A world of one on NCCL: the DP step against the single step (1e-6),
+    and `sharded_composite` against `_Composite` bit for bit, with the
+    sharded calls' compositor launches."""
+    import torch.distributed as dist
+
+    from gsdx_torch.dist import get_mesh, initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed()
+    try:
+        mesh = get_mesh()
+        row = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+        row["dp"], failures = dist_dp_check(mesh, profile=True)
+        launches = {}
+        row["composite"], more = dist_composite_check(mesh, launches)
+        row["compositor_launches"] = launches
+        if not all(launches.get(k, 0) > 0 for k in COMPOSITOR_VARIANTS):
+            more.append(f"a compositor variant never launched in the sharded calls: {launches}")
+        dist_result(out_dir, rank, row, failures + more)
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_gloo_rank(rank: int, world: int, out_dir: str) -> None:
+    """One of two gloo ranks sharing cuda:0: the DP step, the sharded
+    compositor, camera-sharded tracking and sample-sharded MPPI, each
+    against its unsharded run; the compositor's launches of this rank's
+    sharded calls (the unsharded references not counted)."""
+    import torch.distributed as dist
+
+    from gsdx_torch.dist import get_mesh, initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = initialize_distributed(f"file://{out_dir}/store", world, rank,
+                                    backend="gloo", device="cuda:0")
+    try:
+        mesh = get_mesh()
+        row = {"rank": rank, "world": world, "backend": dist.get_backend(),
+               "device": str(device), "pid": os.getpid()}
+        row["dp"], failures = dist_dp_check(mesh)
+        launches = {}
+        row["composite"], more = dist_composite_check(mesh, launches)
+        failures += more
+        row["tracking"], more = dist_tracking_check(mesh, launches)
+        failures += more
+        row["compositor_launches"] = launches
+        if not all(launches.get(k, 0) > 0 for k in COMPOSITOR_VARIANTS):
+            failures.append(f"a compositor variant never launched in the sharded calls: "
+                            f"{launches}")
+        row["mppi"], more = dist_mppi_check(mesh)
+        dist_result(out_dir, rank, row, failures + more)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dist(card: str) -> dict:
+    """`gsdx_torch.dist` on the card: a world of one on NCCL, then two gloo
+    ranks sharing cuda:0 (NCCL refuses two ranks on one device), each world
+    spawned and joined within DIST_TIMEOUT. Each rank's row is printed,
+    after a failure too."""
+    from gsdx_torch.dist.mesh import spawn_ranks
+
+    t0 = time.perf_counter()
+    row = {"phase": "dist", "card": card,
+           "note": "the gloo ranks share one card: their times are no scaling number"}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for name, fn, world in (("nccl", dist_nccl_rank, 1),
+                                    ("gloo", dist_gloo_rank, 2)):
+                d = os.path.join(tmp, name)
+                os.makedirs(d)
+                t1 = time.perf_counter()
+                spawn_ranks(fn, world, (d,), timeout=DIST_TIMEOUT)
+                row[f"{name}_seconds"] = time.perf_counter() - t1
+        finally:
+            for name in ("nccl", "gloo"):
+                d = os.path.join(tmp, name)
+                for r in range(2):
+                    path = os.path.join(d, f"rank{r}.json")
+                    if os.path.exists(path):
+                        with open(path) as f:
+                            row.setdefault(name, []).append(json.load(f))
+            row["seconds"] = time.perf_counter() - t0
+            emit(row)
     return row
 
 
@@ -2709,6 +3130,7 @@ def run() -> int:
     timed("cli_plan", phase_plan_cli)
     timed("cli_learn", phase_learn_cli)
     timed("cli_online", phase_online_cli)
+    dist_row = timed("dist", phase_dist, card)
     timed("reference", phase_reference)
     timed("masks", phase_masks)
     timed("real_env", phase_real_env)
@@ -2737,6 +3159,10 @@ def run() -> int:
         if variant == "fwd":  # the predict path's launches and shape
             table[-1]["launches_predict"] = predict_row["launches"]["fwd"]
             table[-1]["predict_shape"] = {key: predict_kernel[key] for key in shape_keys}
+        # the dist phase's launches, each gloo rank's (sharded compositor and
+        # camera-sharded tracking)
+        table[-1]["launches_dist"] = [r["compositor_launches"][variant]
+                                      for r in dist_row["gloo"]]
         # the online path's launches (fit and renders), and the shape of the
         # variant its fit ran
         table[-1]["launches_online"] = (online_row["fit_launches"][variant]
@@ -2750,6 +3176,7 @@ def run() -> int:
         "source": "gsdx_torch/csrc/gnn_forward.cu",
         "replaces": "gsdx/kernels/gnn_forward.py:180",
         "launches": plan_row["launches"]["gnn_forward"],
+        "launches_dist": [r["mppi"]["launches"]["gnn_forward"] for r in dist_row["gloo"]],
         "max_abs_err": rope["max_abs_err"], "ms": rope["ms"],
         "plain_ms": rope["plain_ms"], "bound_ms": rope["bound_ms"],
         "bound_by": rope["bound_by"], "library_ms": None})
@@ -2760,6 +3187,7 @@ def run() -> int:
         "source": "gsdx_torch/csrc/gnn_gemm.cu",
         "replaces": "gsdx/kernels/gnn_forward.py:180",
         "launches": plan_row["launches"]["gnn_gemm"],
+        "launches_dist": [r["mppi"]["launches"]["gnn_gemm"] for r in dist_row["gloo"]],
         "max_abs_err": gemm["max_abs_err"], "ms": gemm["ms"],
         "plain_ms": gemm["plain_ms"], "bound_ms": gemm["bound_ms"],
         "bound_by": gemm["bound_by"], "library_ms": gemm["library_ms"],
@@ -2770,6 +3198,7 @@ def run() -> int:
             "name": r["name"], "route": "cuda", "source": r["source"],
             "replaces": "gsdx/kernels/gnn_forward.py:180",
             "launches": plan_row["launches"][r["name"]],
+            "launches_dist": [d["mppi"]["launches"][r["name"]] for d in dist_row["gloo"]],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "device_ms": r["device_ms"]})

@@ -7,17 +7,24 @@ train and valid, and trains with checkpoints under
 
     python -m gsdx_torch.apps.train --config configs/rope.yaml
 
-`--dp` (data parallel over several devices) waits for the port of gsdx's
-`dist/` and is refused.
+`--dp` trains data-parallel, one rank a GPU, as gsdx's `--dp` loop: every
+rank draws the same global batch from the same seeded generator and takes
+its rows (`gsdx_torch.dist`), and the first rank prints each epoch's loss
+and writes `latest.ckpt`. Launch it with torchrun (alone it is a world of
+one):
+
+    torchrun --nproc-per-node=N -m gsdx_torch.apps.train --config <yaml> --dp
 """
 
 from __future__ import annotations
 
 import argparse
 import glob
+import os
 from pathlib import Path
 
 import numpy as np
+import torch
 
 
 def load_episode_store(raw_cfg: dict, phase: str, device):
@@ -56,7 +63,8 @@ def load_episode_store(raw_cfg: dict, phase: str, device):
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--config", required=True)
-    p.add_argument("--dp", action="store_true", help="data-parallel (not ported)")
+    p.add_argument("--dp", action="store_true",
+                   help="data-parallel over the ranks of torchrun")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
 
@@ -66,9 +74,8 @@ def main(argv=None):
     from gsdx_torch.io.config import load_config, parse_yaml
 
     if args.dp:
-        raise NotImplementedError(
-            "--dp needs the port of gsdx's dist/ (data-parallel training), "
-            "which is not ported yet; train on one device without --dp")
+        train_dp(args.config, args.device)
+        return
     device = require_device(args.device)
     with open(args.config) as f:
         raw = parse_yaml(f.read())
@@ -76,6 +83,42 @@ def main(argv=None):
     train_sampler = GraphSampler(load_episode_store(raw, "train", device), data_cfg, "train")
     valid_sampler = GraphSampler(load_episode_store(raw, "valid", device), data_cfg, "valid")
     train_dynamics(train_sampler, valid_sampler, model_cfg, train_cfg)
+
+
+def train_dp(config: str, device: str) -> None:
+    """gsdx's `--dp` loop (`gsdx/apps/train.py`) over the ranks of this
+    process group, which it starts and ends."""
+    import torch.distributed as dist
+
+    from gsdx_torch.dist import get_mesh, initialize_distributed, make_dp_train_step, shard_batch
+    from gsdx_torch.dynamics.model import flax_params
+    from gsdx_torch.dynamics.train import init_params
+    from gsdx_torch.graph.dataset import GraphSampler
+    from gsdx_torch.io.checkpoint import save_checkpoint
+    from gsdx_torch.io.config import load_config, parse_yaml
+
+    device = initialize_distributed(device=device)
+    try:
+        with open(config) as f:
+            raw = parse_yaml(f.read())
+        train_cfg, model_cfg, data_cfg = load_config(config)
+        sampler = GraphSampler(load_episode_store(raw, "train", device), data_cfg, "train")
+        mesh = get_mesh()
+        model = init_params(model_cfg, train_cfg.random_seed, device)
+        step, _ = make_dp_train_step(model, train_cfg, mesh)
+        g = torch.Generator(device=device).manual_seed(train_cfg.random_seed)
+        ckpt_dir = os.path.join(train_cfg.out_dir, "checkpoints")
+        first = dist.get_rank() == mesh.ranks[0]
+        if first:
+            os.makedirs(ckpt_dir, exist_ok=True)
+        for epoch in range(train_cfg.n_epochs):
+            for _ in range(train_cfg.n_iters_per_epoch_train):
+                loss, _ = step(shard_batch(sampler.sample(g, train_cfg.batch_size), mesh))
+            if first:
+                print(f"epoch {epoch} loss {float(loss):.6f}")
+                save_checkpoint(os.path.join(ckpt_dir, "latest.ckpt"), flax_params(model))
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -48,7 +48,12 @@
 //     the cluster sums its blocks in rank order through distributed shared
 //     memory, each block writing its share of the granule's columns. No
 //     atomics: every gradient element is written once, the same on every
-//     run.
+//     run;
+//   * `tile_ids` (optional) maps a row of the inputs to the global tile
+//     whose pixels it covers, as gsdx's kernels read `tile_ids_ref` under
+//     shard_map: it sets only the pixel origin (and with it each warp's
+//     culling patch); features, counts and outputs stay indexed by the row.
+//     A null pointer is the identity.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -181,7 +186,7 @@ __device__ __forceinline__ float warp_sum16(float (&v)[16]) {
 
 // Where this thread's pixels lie: the warp's patch origin in image pixels,
 // the thread's column and first row in the tile, and its pixel-centre
-// coordinates.
+// coordinates. `tile` is the global tile id.
 struct Pixels {
   float patch_x0, patch_y0, px, py0;
   int col, row0;
@@ -208,8 +213,9 @@ __device__ __forceinline__ Pixels thread_pixels(int tile, int rank, int C, int t
 template <int NACC, int PPT>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 fwd_kernel(const float* __restrict__ feats, const int* __restrict__ counts,
-           float* __restrict__ accum_out, float* __restrict__ logt_out,
-           int* __restrict__ nproc_out, float* __restrict__ rank_out,
+           const int* __restrict__ tile_ids, float* __restrict__ accum_out,
+           float* __restrict__ logt_out, int* __restrict__ nproc_out,
+           float* __restrict__ rank_out,
            float* __restrict__ sorted_out, int K, int tiles_x, int tile_h,
            int sub, int presort, int early_stop) {
   constexpr int NROW = 6 + NACC;
@@ -229,7 +235,8 @@ fwd_kernel(const float* __restrict__ feats, const int* __restrict__ counts,
   const float* tf = feats + static_cast<size_t>(tile) * FEAT_DIM * K;
   float* acc_o = accum_out + static_cast<size_t>(tile) * NACC * P;
   float* lt_o = logt_out + static_cast<size_t>(tile) * P;
-  const Pixels pix = thread_pixels<PPT>(tile, rank, C, tiles_x, tile_h);
+  const Pixels pix =
+      thread_pixels<PPT>(tile_ids ? tile_ids[tile] : tile, rank, C, tiles_x, tile_h);
   // this block's share of tile-wide work, spread over the cluster
   const int share0 = rank * nt + tid, share_step = C * nt;
 
@@ -360,7 +367,8 @@ fwd_kernel(const float* __restrict__ feats, const int* __restrict__ counts,
 template <int NACC, int PPT>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 bwd_kernel(const float* __restrict__ feats, const int* __restrict__ counts,
-           const int* __restrict__ nproc_in, const float* __restrict__ logt_final,
+           const int* __restrict__ tile_ids, const int* __restrict__ nproc_in,
+           const float* __restrict__ logt_final,
            const float* __restrict__ g_accum, const float* __restrict__ g_logt,
            const float* __restrict__ rank_in, float* __restrict__ grad, int K,
            int tiles_x, int tile_h, int sub, int presort) {
@@ -408,7 +416,8 @@ bwd_kernel(const float* __restrict__ feats, const int* __restrict__ counts,
     if (f >= NV || r >= kdone) go[f * K + perm[r]] = 0.f;
   }
 
-  const Pixels pix = thread_pixels<PPT>(tile, rank, C, tiles_x, tile_h);
+  const Pixels pix =
+      thread_pixels<PPT>(tile_ids ? tile_ids[tile] : tile, rank, C, tiles_x, tile_h);
   float ltf[PPT], glt[PPT], s_after[PPT], b_after[PPT];
   float gacc[PPT][NACC];
 #pragma unroll
@@ -608,9 +617,11 @@ int gsdx_composite_last_launch(int* out) {
   return 0;
 }
 
-// Returns a cudaError_t code: 0 when the launch was accepted.
-int gsdx_composite_fwd(const float* feats, const int* counts, float* accum,
-                       float* logt, int* nproc, float* rank, float* sorted_feats,
+// Returns a cudaError_t code: 0 when the launch was accepted. `tile_ids`
+// (T,) may be null: row t then covers tile t.
+int gsdx_composite_fwd(const float* feats, const int* counts, const int* tile_ids,
+                       float* accum, float* logt, int* nproc, float* rank,
+                       float* sorted_feats,
                        int T, int K, int tiles_x, int tile_h, int tile_w,
                        int n_accum, int sub, int presort, int early_stop,
                        void* stream) {
@@ -625,12 +636,14 @@ int gsdx_composite_fwd(const float* feats, const int* counts, float* accum,
   cudaError_t err;
   switch (n_accum) {
     case 4:
-      err = launch(fwd_kernel<4, PPT_FWD>, T, C, nt, smem, s, feats, counts, accum, logt, nproc,
-                   rank, sorted_feats, K, tiles_x, tile_h, sub, presort, early_stop);
+      err = launch(fwd_kernel<4, PPT_FWD>, T, C, nt, smem, s, feats, counts, tile_ids, accum,
+                   logt, nproc, rank, sorted_feats, K, tiles_x, tile_h, sub, presort,
+                   early_stop);
       break;
     case 7:
-      err = launch(fwd_kernel<7, PPT_FWD>, T, C, nt, smem, s, feats, counts, accum, logt, nproc,
-                   rank, sorted_feats, K, tiles_x, tile_h, sub, presort, early_stop);
+      err = launch(fwd_kernel<7, PPT_FWD>, T, C, nt, smem, s, feats, counts, tile_ids, accum,
+                   logt, nproc, rank, sorted_feats, K, tiles_x, tile_h, sub, presort,
+                   early_stop);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -638,8 +651,9 @@ int gsdx_composite_fwd(const float* feats, const int* counts, float* accum,
   return static_cast<int>(err);
 }
 
-int gsdx_composite_bwd(const float* feats, const int* counts, const int* nproc,
-                       const float* logt, const float* g_accum, const float* g_logt,
+int gsdx_composite_bwd(const float* feats, const int* counts, const int* tile_ids,
+                       const int* nproc, const float* logt, const float* g_accum,
+                       const float* g_logt,
                        const float* rank, float* grad, int T, int K, int tiles_x,
                        int tile_h, int tile_w, int n_accum, int sub, int presort,
                        void* stream) {
@@ -656,12 +670,12 @@ int gsdx_composite_bwd(const float* feats, const int* counts, const int* nproc,
   cudaError_t err;
   switch (n_accum) {
     case 4:
-      err = launch(bwd_kernel<4, PPT_BWD>, T, C, nt, smem, s, feats, counts, nproc, logt, g_accum,
-                   g_logt, rank, grad, K, tiles_x, tile_h, sub, presort);
+      err = launch(bwd_kernel<4, PPT_BWD>, T, C, nt, smem, s, feats, counts, tile_ids, nproc,
+                   logt, g_accum, g_logt, rank, grad, K, tiles_x, tile_h, sub, presort);
       break;
     case 7:
-      err = launch(bwd_kernel<7, PPT_BWD>, T, C, nt, smem, s, feats, counts, nproc, logt, g_accum,
-                   g_logt, rank, grad, K, tiles_x, tile_h, sub, presort);
+      err = launch(bwd_kernel<7, PPT_BWD>, T, C, nt, smem, s, feats, counts, tile_ids, nproc,
+                   logt, g_accum, g_logt, rank, grad, K, tiles_x, tile_h, sub, presort);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

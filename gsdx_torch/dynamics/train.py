@@ -41,11 +41,13 @@ class TrainConfig(NamedTuple):
     dist_thresh: float = 0.01
 
 
-def unrolled_loss(model: DynamicsPredictor, batch: GraphBatch, cfg: TrainConfig):
+def unrolled_loss(model: DynamicsPredictor, batch: GraphBatch, cfg: TrainConfig,
+                  rigid_count=None):
     """(total loss, {"mse", "length", "rigid"} sums) of the n_future-step
     unroll. Step 0 takes ``batch.action``; after step fi the predicted
     objects overwrite the object slots of ``tool_future[:, fi]``, the
-    history shifts by one, and the next step takes ``action_future[:, fi]``."""
+    history shifts by one, and the next step takes ``action_future[:, fi]``.
+    ``rigid_count`` is `rigid_loss`'s ``mask_count``."""
     state, action = batch.state, batch.action
     n_p = batch.state_future.shape[2]
     total = 0.0
@@ -59,7 +61,7 @@ def unrolled_loss(model: DynamicsPredictor, batch: GraphBatch, cfg: TrainConfig)
         parts["mse"] += l_mse
         parts["length"] += l_len
         if cfg.rigid_weight > 0:
-            l_rig = rigid_loss(pred, state, batch.obj_mask)
+            l_rig = rigid_loss(pred, state, batch.obj_mask, rigid_count)
             step_loss = step_loss + cfg.rigid_weight * l_rig
             parts["rigid"] += l_rig
         total = total + step_loss

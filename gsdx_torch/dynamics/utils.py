@@ -52,12 +52,16 @@ def length_loss(pred, state, Rr, Rs):
     return torch.mean((pred_len - pos_len) ** 2)
 
 
-def rigid_loss(pred, state, obj_mask):
+def rigid_loss(pred, state, obj_mask, mask_count=None):
     """Masked squared distance of ``pred`` from the best rigid fit of the
-    oldest history frame onto it; the fit is detached."""
+    oldest history frame onto it; the fit is detached. The sum is divided
+    by 3 x ``mask_count``, by default ``obj_mask``'s own count of masked
+    particles (data-parallel ranks pass the mean count over the ranks, so
+    that the mean of their losses is the whole batch's)."""
     orig = state[:, 0, : pred.shape[1]]
     with torch.no_grad():
         _, R, t = umeyama(orig, pred, obj_mask, fixed_scale=True)
         pred_ume = torch.einsum("bni,bji->bnj", orig, R) + t[:, None]
     m = obj_mask.to(pred.dtype)[..., None]
-    return torch.sum((pred - pred_ume) ** 2 * m) / torch.clamp(torch.sum(m) * 3, min=1e-6)
+    count = torch.sum(m) if mask_count is None else mask_count
+    return torch.sum((pred - pred_ume) ** 2 * m) / torch.clamp(count * 3, min=1e-6)

@@ -29,7 +29,11 @@ sub-chunk boundary where every pixel has log T < LOG_T_STOP, and `nproc`
 records how many sub-chunks it composited; the backward replays exactly
 that prefix. With ``presort`` the per-tile lists may arrive in any order:
 columns are ranked by (depth, slot) first, and the forward also returns the
-rank and the sorted features that the backward consumes.
+rank and the sorted features that the backward consumes. ``tile_ids`` (T,)
+int32, optional, names the global tile of each row (a shard of the tiles,
+`dist/render_sharded.py`): it sets the row's pixel coordinates only; with
+it the callers pass the grid's ``tiles_y``, and ids outside the grid are
+refused before any launch.
 """
 
 from __future__ import annotations
@@ -206,6 +210,8 @@ def composite_tiles_torch(
     early_stop: bool = True,
     nproc: torch.Tensor | None = None,
     batch: int = 32,
+    tile_ids: torch.Tensor | None = None,
+    tiles_y: int | None = None,
 ):
     """Plain PyTorch compositor over (T, F, K) tile features.
 
@@ -214,7 +220,9 @@ def composite_tiles_torch(
     so only its inputs are kept for the backward). Tiles run in batches of
     ``batch`` and each batch only as wide as its longest list. ``nproc``
     (T,) replays exactly that many sub-chunks per tile (the backward's
-    contract) instead of deciding the stop.
+    contract) instead of deciding the stop. ``tile_ids`` (T,) places row t
+    at global tile ``tile_ids[t]`` of a grid ``tiles_x`` x ``tiles_y``
+    (default: row t is tile t).
 
     Returns accum (T, n_accum, P), logt (T, 1, P), nproc (T,) int32; with
     ``presort`` also rank (T, 1, K) f32 and the sorted features (T, F, K),
@@ -229,7 +237,11 @@ def composite_tiles_torch(
     if presort:
         perm, rank = presort_rank(tile_feats, counts, n_accum)
         feats = torch.take_along_dim(tile_feats, perm[:, None, :], dim=2)
-    tile_idx = torch.arange(T, device=tile_feats.device)
+    if tile_ids is None:
+        tile_idx = torch.arange(T, device=tile_feats.device)
+    else:
+        _check_tile_ids(tile_ids, T, tiles_x, tiles_y, tile_feats.device)
+        tile_idx = tile_ids.long()
     kw = dict(tiles_x=tiles_x, tile_h=tile_h, tile_w=tile_w, n_accum=n_accum,
               sub=sub_chunk, early_stop=early_stop)
     outs = []
@@ -258,7 +270,8 @@ def composite_tiles_torch(
 
 
 def composite_bwd_torch(feats, counts, nproc, g_accum, g_logt, rank=None, *,
-                        tiles_x, tile_h, tile_w, n_accum, sub_chunk):
+                        tiles_x, tile_h, tile_w, n_accum, sub_chunk,
+                        tile_ids=None, tiles_y=None):
     """Plain backward: autograd of `composite_tiles_torch` replaying
     ``nproc`` sub-chunks. With ``rank`` the features are the sorted copy and
     the gradient is un-sorted back to the input column order."""
@@ -266,7 +279,8 @@ def composite_bwd_torch(feats, counts, nproc, g_accum, g_logt, rank=None, *,
     with torch.enable_grad():
         accum, logt, _ = composite_tiles_torch(
             f, counts, tiles_x=tiles_x, tile_h=tile_h, tile_w=tile_w,
-            n_accum=n_accum, sub_chunk=sub_chunk, nproc=nproc)
+            n_accum=n_accum, sub_chunk=sub_chunk, nproc=nproc,
+            tile_ids=tile_ids, tiles_y=tiles_y)
         (grad,) = torch.autograd.grad((accum, logt), f, (g_accum, g_logt))
     if rank is not None:
         idx = rank.long().expand(-1, FEAT_DIM, -1)
@@ -280,8 +294,8 @@ def composite_bwd_torch(feats, counts, nproc, g_accum, g_logt, rank=None, *,
 
 LIBRARY = CudaLibrary(
     "gsdx_composite", "composite.cu",
-    {"gsdx_composite_fwd": [PTR] * 7 + [I32] * 9 + [PTR],
-     "gsdx_composite_bwd": [PTR] * 8 + [I32] * 8 + [PTR],
+    {"gsdx_composite_fwd": [PTR] * 8 + [I32] * 9 + [PTR],
+     "gsdx_composite_bwd": [PTR] * 9 + [I32] * 8 + [PTR],
      "gsdx_composite_last_launch": [PTR]},
     error_string="gsdx_cuda_error_string")
 
@@ -292,6 +306,24 @@ def last_launch() -> dict:
     out = (ctypes.c_int * 3)()
     LIBRARY.load().gsdx_composite_last_launch(ctypes.cast(out, ctypes.c_void_p))
     return {"cluster": out[0], "blocks": out[1], "threads": out[2]}
+
+
+def _check_tile_ids(tile_ids, T, tiles_x, tiles_y, device):
+    """Refuse tile ids that are not contiguous (T,) int32 on ``device`` or
+    that name a tile outside the ``tiles_x`` x ``tiles_y`` grid (one read
+    back of their range, before any launch)."""
+    if tiles_y is None:
+        raise ValueError("tile_ids needs the grid's tiles_y")
+    if (tile_ids.dtype != torch.int32 or tile_ids.shape != (T,)
+            or tile_ids.device != device or not tile_ids.is_contiguous()):
+        raise ValueError(f"tile_ids must be contiguous ({T},) int32 on {device}, got "
+                         f"{tuple(tile_ids.shape)} {tile_ids.dtype} on {tile_ids.device}")
+    if not T:
+        return
+    lo, hi = (int(v) for v in torch.aminmax(tile_ids))
+    if not (0 <= lo and hi < tiles_x * tiles_y):
+        raise ValueError(f"tile_ids must lie in [0, {tiles_x * tiles_y}) for a "
+                         f"{tiles_x} x {tiles_y} grid")
 
 
 def _check_inputs(tile_h, tile_w, n_accum, sub_chunk, K, **tensors):
@@ -323,12 +355,16 @@ def _check_inputs(tile_h, tile_w, n_accum, sub_chunk, K, **tensors):
 def composite_fwd(tile_feats: torch.Tensor, counts: torch.Tensor, *,
                   tiles_x: int, tile_h: int, tile_w: int, n_accum: int,
                   sub_chunk: int, presort: bool = False,
-                  early_stop: bool = True):
+                  early_stop: bool = True, tile_ids: torch.Tensor | None = None,
+                  tiles_y: int | None = None):
     """Forward compositor. Returns (accum, logt, nproc, rank, sorted_feats);
-    rank and sorted_feats are None without ``presort``. CUDA tensors launch
-    the kernel; CPU tensors run `composite_tiles_torch`."""
+    rank and sorted_feats are None without ``presort``. ``tile_ids`` (T,)
+    int32 places each row at a global tile of the ``tiles_x`` x ``tiles_y``
+    grid. CUDA tensors launch the kernel; CPU tensors run
+    `composite_tiles_torch`."""
     kw = dict(tiles_x=tiles_x, tile_h=tile_h, tile_w=tile_w, n_accum=n_accum,
-              sub_chunk=sub_chunk, presort=presort, early_stop=early_stop)
+              sub_chunk=sub_chunk, presort=presort, early_stop=early_stop,
+              tile_ids=tile_ids, tiles_y=tiles_y)
     if not tile_feats.is_cuda:
         with torch.no_grad():
             out = composite_tiles_torch(tile_feats, counts, **kw)
@@ -339,6 +375,8 @@ def composite_fwd(tile_feats: torch.Tensor, counts: torch.Tensor, *,
         raise ValueError("tile_feats must be (T, 16, K) and counts (T,)")
     _check_inputs(tile_h, tile_w, n_accum, sub_chunk, K,
                   tile_feats=tile_feats, counts=counts)
+    if tile_ids is not None:
+        _check_tile_ids(tile_ids, T, tiles_x, tiles_y, tile_feats.device)
     lib = LIBRARY.load()
     P = tile_h * tile_w
     accum = torch.empty((T, n_accum, P), device=tile_feats.device)
@@ -350,7 +388,8 @@ def composite_fwd(tile_feats: torch.Tensor, counts: torch.Tensor, *,
         sorted_feats = torch.empty_like(tile_feats)
     stream = torch.cuda.current_stream(tile_feats.device).cuda_stream
     err = lib.gsdx_composite_fwd(
-        tile_feats.data_ptr(), counts.data_ptr(), accum.data_ptr(),
+        tile_feats.data_ptr(), counts.data_ptr(),
+        tile_ids.data_ptr() if tile_ids is not None else None, accum.data_ptr(),
         logt.data_ptr(), nproc.data_ptr(),
         rank.data_ptr() if presort else None,
         sorted_feats.data_ptr() if presort else None,
@@ -365,13 +404,16 @@ def composite_bwd(feats: torch.Tensor, counts: torch.Tensor,
                   nproc: torch.Tensor, logt: torch.Tensor,
                   g_accum: torch.Tensor, g_logt: torch.Tensor,
                   rank: torch.Tensor | None = None, *, tiles_x: int,
-                  tile_h: int, tile_w: int, n_accum: int, sub_chunk: int):
+                  tile_h: int, tile_w: int, n_accum: int, sub_chunk: int,
+                  tile_ids: torch.Tensor | None = None,
+                  tiles_y: int | None = None):
     """Backward compositor: dense (T, F, K) gradient w.r.t. the forward's
     input features. With ``rank`` (presort), ``feats`` is the forward's
-    sorted copy and the gradient comes back in the input column order.
-    CUDA tensors launch the kernel; CPU tensors run `composite_bwd_torch`."""
+    sorted copy and the gradient comes back in the input column order;
+    ``tile_ids`` as the forward's. CUDA tensors launch the kernel; CPU
+    tensors run `composite_bwd_torch`."""
     geo = dict(tiles_x=tiles_x, tile_h=tile_h, tile_w=tile_w, n_accum=n_accum,
-               sub_chunk=sub_chunk)
+               sub_chunk=sub_chunk, tile_ids=tile_ids, tiles_y=tiles_y)
     if not feats.is_cuda:
         return composite_bwd_torch(feats, counts, nproc, g_accum, g_logt,
                                    rank, **geo)
@@ -388,11 +430,15 @@ def composite_bwd(feats: torch.Tensor, counts: torch.Tensor,
     if rank is not None:
         tensors["rank"] = rank
     _check_inputs(tile_h, tile_w, n_accum, sub_chunk, K, **tensors)
+    if tile_ids is not None:
+        _check_tile_ids(tile_ids, T, tiles_x, tiles_y, feats.device)
     lib = LIBRARY.load()
     grad = torch.empty_like(feats)
     stream = torch.cuda.current_stream(feats.device).cuda_stream
     err = lib.gsdx_composite_bwd(
-        feats.data_ptr(), counts.data_ptr(), nproc.data_ptr(), logt.data_ptr(),
+        feats.data_ptr(), counts.data_ptr(),
+        tile_ids.data_ptr() if tile_ids is not None else None,
+        nproc.data_ptr(), logt.data_ptr(),
         g_accum.data_ptr(), g_logt.data_ptr(),
         rank.data_ptr() if rank is not None else None, grad.data_ptr(),
         T, K, tiles_x, tile_h, tile_w, n_accum, sub_chunk,

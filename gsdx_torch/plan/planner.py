@@ -4,8 +4,9 @@ One MPPI update iteration samples actions, rolls them out, scores them and
 moves the mean by a softmax over the rewards, tracking the best sample.
 `plan_chunked` is the best of several independent optimizations. The GD
 planner runs Adam on the sampled action batch through the differentiable
-(module) rollout. There is one card, so no mesh: sharding the sample
-batch is the `dist/` slice's work.
+(module) rollout. With a `gsdx_torch.dist` mesh, MPPI's sample batch is
+split over the ranks: each rolls out and scores its contiguous share, the
+rewards are gathered, and every rank takes the same update.
 """
 
 from __future__ import annotations
@@ -44,12 +45,21 @@ class Planner:
         needs_grad=True (`make_batched_rollout` then takes the module path:
         the fused kernels have no backward)
     evaluate_traj_fn(state_seqs, act_seqs_decoded, state_cur) -> {"reward_seqs"}
+
+    ``mesh`` (a `gsdx_torch.dist.Mesh`): MPPI's samples split over
+    ``mesh_axis``, as gsdx's sharded sample batch. Every rank draws the
+    whole batch (the first rank's draw is broadcast), rolls out and scores
+    its contiguous n_sample / n samples, and gathers the rewards; the
+    update and the best sample are then the same on every rank. The GD
+    planner does not shard.
     """
 
     def __init__(self, cfg: MPPIConfig, model_rollout_fn: Callable,
                  evaluate_traj_fn: Callable,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None,
+                 mesh_axis: str = "data"):
         self.cfg = cfg
+        self.mesh, self.mesh_axis = mesh, mesh_axis
         self.device = require_device(device)
         self.lower = torch.tensor(cfg.action_lower_lim, dtype=torch.float32,
                                   device=self.device)
@@ -72,9 +82,19 @@ class Planner:
         rewards of this iteration's samples)."""
         cfg = self.cfg
         act_seqs = self._sample(generator, act_seq, iter_index, draws)
-        out = self._rollout(state_cur, act_seqs)
-        rewards = self._evaluate(out["state_seqs"], out["action_seqs"],
-                                 state_cur)["reward_seqs"]
+        if self.mesh is None:
+            out = self._rollout(state_cur, act_seqs)
+            rewards = self._evaluate(out["state_seqs"], out["action_seqs"],
+                                     state_cur)["reward_seqs"]
+        else:
+            from gsdx_torch.dist.mesh import batch_sharding, gather_rows, replicated
+
+            act_seqs = replicated(act_seqs.contiguous(), self.mesh)
+            mine = batch_sharding(act_seqs, self.mesh, self.mesh_axis)
+            out = self._rollout(state_cur, mine)
+            rewards = gather_rows(self._evaluate(out["state_seqs"], out["action_seqs"],
+                                                 state_cur)["reward_seqs"],
+                                  self.mesh, self.mesh_axis)
         new_act_seq = optimize_action_mppi(act_seqs, rewards, self.lower, self.upper,
                                            reward_weight=cfg.reward_weight,
                                            push_length=cfg.push_length)

@@ -113,21 +113,25 @@ class _GatherTiles(torch.autograd.Function):
 
 class _Composite(torch.autograd.Function):
     """Compositor with a kernel backward. The forward saves nproc and, with
-    presort, the rank and sorted features; the backward replays them."""
+    presort, the rank and sorted features; the backward replays them.
+    ``tile_ids`` (T,) int32, optional, places each row at a global tile
+    (``geo`` then holds the grid's ``tiles_y``); forward and backward both
+    take it."""
 
     @staticmethod
     def forward(ctx, tile_feats, counts, geo: dict, presort: bool,
-                early_stop: bool):
+                early_stop: bool, tile_ids=None):
         accum, logt, nproc, rank, sorted_feats = composite_fwd(
-            tile_feats, counts, presort=presort, early_stop=early_stop, **geo)
+            tile_feats, counts, presort=presort, early_stop=early_stop,
+            tile_ids=tile_ids, **geo)
         ctx.geo = geo
         ctx.save_for_backward(sorted_feats if presort else tile_feats, counts,
-                              nproc, logt, rank)
+                              nproc, logt, rank, tile_ids)
         return accum, logt
 
     @staticmethod
     def backward(ctx, g_accum, g_logt):
-        feats, counts, nproc, logt, rank = ctx.saved_tensors
+        feats, counts, nproc, logt, rank, tile_ids = ctx.saved_tensors
         if g_accum is None:
             g_accum = torch.zeros(logt.shape[0], ctx.geo["n_accum"],
                                   logt.shape[2], device=logt.device)
@@ -135,8 +139,8 @@ class _Composite(torch.autograd.Function):
             g_logt = torch.zeros_like(logt)
         grad = composite_bwd(feats, counts, nproc, logt,
                              g_accum.contiguous(), g_logt.contiguous(), rank,
-                             **ctx.geo)
-        return grad, None, None, None, None
+                             tile_ids=tile_ids, **ctx.geo)
+        return grad, None, None, None, None, None
 
 
 def _assemble_image(tiled: torch.Tensor, grid: TileGrid) -> torch.Tensor:

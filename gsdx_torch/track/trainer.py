@@ -46,7 +46,7 @@ from gsdx_torch.track.losses import LossWeights, tracking_loss
 from gsdx_torch.track.optimizer import FIELDS, AdamState, GroupAdam, tracking_lrs
 
 # Parameter fields that take gradients (live is a mask).
-_GRAD_FIELDS = tuple(f for f in FIELDS if f != "live")
+GRAD_FIELDS = tuple(f for f in FIELDS if f != "live")
 
 
 class TrackingConfig(NamedTuple):
@@ -102,7 +102,7 @@ def make_fit_timestep(cfg: TrackingConfig, is_initial: bool, num_iters: int):
                         for c in range(num_cams)]
             c = int(cam_order[i])
             leaves = {f: getattr(params, f).detach().requires_grad_(True)
-                      for f in _GRAD_FIELDS}
+                      for f in GRAD_FIELDS}
             p = dataclasses.replace(params, **leaves)
             m2d = torch.zeros_like(params.means3d[:, :2], requires_grad=True)
             loss, aux = tracking_loss(
@@ -112,7 +112,7 @@ def make_fit_timestep(cfg: TrackingConfig, is_initial: bool, num_iters: int):
             grads = torch.autograd.grad(loss, [*leaves.values(), m2d],
                                         allow_unused=True)
             g_params = GaussianParams(
-                **dict(zip(_GRAD_FIELDS, grads[:-1])), live=None)
+                **dict(zip(GRAD_FIELDS, grads[:-1])), live=None)
             params = dataclasses.replace(
                 params, **{f: t.detach() for f, t in leaves.items()})
 

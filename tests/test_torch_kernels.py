@@ -271,7 +271,7 @@ def test_a_refused_launch_leaves_no_error_behind(cuda):
     pix = torch.zeros(T, geo["n_accum"], P, device=cuda)
     stream = torch.cuda.current_stream().cuda_stream
     err = C.LIBRARY.load().gsdx_composite_bwd(
-        feats.data_ptr(), counts.data_ptr(), counts.data_ptr(), pix.data_ptr(),
+        feats.data_ptr(), counts.data_ptr(), None, counts.data_ptr(), pix.data_ptr(),
         pix.data_ptr(), pix.data_ptr(), None, feats.data_ptr(), T, K,
         geo["tiles_x"], geo["tile_h"], geo["tile_w"], geo["n_accum"], sub, 0, stream)
     assert err != 0
@@ -279,3 +279,65 @@ def test_a_refused_launch_leaves_no_error_behind(cuda):
     torch.cuda.synchronize()
     assert torch.isfinite(out[0]).all()
     assert float(torch.ones(1, device=cuda).add(1)) == 2.0
+
+
+@pytest.mark.parametrize("presort", [False, True])
+def test_a_shard_with_its_tile_ids_equals_the_unsharded_rows(cuda, presort):
+    """Kernels #1 and #2 on one shard's rows, with their global tile ids,
+    give the whole launch's rows bit for bit: a block does the same work
+    whatever its row."""
+    tf, counts, geo = _tiles(cuda, 0, 400, 16, 256, presort)
+    T = tf.shape[0]
+    tiles_y = -(-64 // geo["tile_h"])
+    assert T == geo["tiles_x"] * tiles_y
+    kw = dict(geo, sub_chunk=64, presort=presort)
+    full = C.composite_fwd(tf, counts, **kw)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    g_acc = torch.randn(full[0].shape, device=cuda, generator=g)
+    g_lt = torch.randn(full[1].shape, device=cuda, generator=g)
+    geo_b = dict(geo, sub_chunk=64)
+    grad = C.composite_bwd(full[4] if presort else tf, counts, full[2], full[1], g_acc,
+                           g_lt, full[3], **geo_b)
+    rows = slice(T // 3, T)  # the last two of three shards
+    ids = torch.arange(T, dtype=torch.int32, device=cuda)[rows].contiguous()
+    before = dict(C.LAUNCHES)
+    part = C.composite_fwd(tf[rows].contiguous(), counts[rows].contiguous(), **kw,
+                           tile_ids=ids, tiles_y=tiles_y)
+    variant = "fwd_presort" if presort else "fwd"
+    assert C.LAUNCHES[variant] == before[variant] + 1
+    for a, b in zip(part, full):
+        if a is not None:
+            assert torch.equal(a, b[rows])
+    feats_b = part[4] if presort else tf[rows].contiguous()
+    grad_s = C.composite_bwd(feats_b, counts[rows].contiguous(), part[2], part[1],
+                             g_acc[rows].contiguous(), g_lt[rows].contiguous(), part[3],
+                             **geo_b, tile_ids=ids, tiles_y=tiles_y)
+    assert torch.equal(grad_s, grad[rows])
+    # and the identity, given as ids, is the launch without them
+    same = C.composite_fwd(tf, counts, **kw, tile_ids=torch.arange(
+        T, dtype=torch.int32, device=cuda), tiles_y=tiles_y)
+    assert torch.equal(same[0], full[0]) and torch.equal(same[1], full[1])
+
+
+def test_tile_ids_outside_the_grid_are_refused_before_any_launch(cuda):
+    tf, counts, geo = _tiles(cuda, 0, 100, 8, 128, False)
+    T = tf.shape[0]
+    tiles_y = 64 // 8
+    before = dict(C.LAUNCHES)
+    for ids in (torch.full((T,), T, dtype=torch.int32, device=cuda),
+                torch.full((T,), -1, dtype=torch.int32, device=cuda)):
+        with pytest.raises(ValueError, match="tile_ids must lie"):
+            C.composite_fwd(tf, counts, **geo, sub_chunk=64, tile_ids=ids, tiles_y=tiles_y)
+        with pytest.raises(ValueError, match="tile_ids must lie"):
+            C.composite_bwd(tf, counts, counts, torch.zeros(T, 1, 1024, device=cuda),
+                            torch.zeros(T, geo["n_accum"], 1024, device=cuda),
+                            torch.zeros(T, 1, 1024, device=cuda), **geo, sub_chunk=64,
+                            tile_ids=ids, tiles_y=tiles_y)
+    ok = torch.zeros(T, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="tiles_y"):
+        C.composite_fwd(tf, counts, **geo, sub_chunk=64, tile_ids=ok)
+    with pytest.raises(ValueError, match="int32"):
+        C.composite_fwd(tf, counts, **geo, sub_chunk=64, tile_ids=ok.long(), tiles_y=tiles_y)
+    with pytest.raises(ValueError, match="int32"):
+        C.composite_fwd(tf, counts, **geo, sub_chunk=64, tile_ids=ok.cpu(), tiles_y=tiles_y)
+    assert C.LAUNCHES == before

@@ -21,9 +21,11 @@ from gsdx.dynamics.train import init_params as j_init_params
 from gsdx.graph.dataset import GraphDatasetConfig as JDataConfig
 from gsdx.render.renderer import Renderer as JRenderer
 from gsdx_torch.apps.predict import collect_scene_data
-from gsdx_torch.dynamics.model import DynamicsPredictor, ModelConfig, load_flax_params
+from gsdx_torch.dynamics.model import (DynamicsPredictor, ModelConfig, flax_params,
+                                       load_flax_params)
 from gsdx_torch.dynamics.train import TrainConfig
 from gsdx_torch.graph.dataset import GraphDatasetConfig
+from gsdx_torch.io.checkpoint import load_checkpoint
 from gsdx_torch.io.video import encode_png, write_video
 from gsdx_torch.render.renderer import Renderer
 
@@ -173,10 +175,11 @@ def test_png_writer_decodes_to_the_frame(rng, tmp_path):
         encode_png(np.zeros((4, 5, 2)))
 
 
-def test_learn_and_predict_clis_on_the_cpu(rng, tmp_path, monkeypatch):
+def test_learn_and_predict_clis_on_the_cpu(rng, tmp_path, monkeypatch, capsys):
     """preprocess -> train (1 epoch, 5 train and 2 valid iterations) ->
     predict (4 steps, 1 camera) through the CLIs, on a two-episode tree
-    (the 80/20 split needs two), from a working directory of their own."""
+    (the 80/20 split needs two), from a working directory of their own;
+    then train --dp, a world of one over gloo."""
     from gsdx_torch.apps import predict, preprocess, train
 
     name = "toy"
@@ -217,8 +220,15 @@ def test_learn_and_predict_clis_on_the_cpu(rng, tmp_path, monkeypatch):
     im = np.asarray(Image.open(tmp_path / "out" / "predict" / "camera_0" / pngs[-1]))
     assert im.shape == (H, W, 3)
 
-    with pytest.raises(NotImplementedError, match="dist/"):
-        train.main(["--config", str(cfg), "--dp", "--device", "cpu"])
+    ckpt_dir = tmp_path / "log" / "toy" / "checkpoints"
+    for ckpt in os.listdir(ckpt_dir):
+        os.remove(ckpt_dir / ckpt)
+    capsys.readouterr()
+    train.main(["--config", str(cfg), "--dp", "--device", "cpu"])
+    assert capsys.readouterr().out.startswith("epoch 0 loss ")
+    assert os.listdir(ckpt_dir) == ["latest.ckpt"]
+    load_checkpoint(str(ckpt_dir / "latest.ckpt"),
+                    flax_params(DynamicsPredictor(ModelConfig(32, 32, 32))))
     # --overlay: the same frames blended by their coverage, with the trail
     predict.main(["--config", str(cfg), "--episode", str(base / "data" / name / "episode_00"),
                   "--params", str(ep), "--out", "out/overlay", "--max_steps", "4",
@@ -226,7 +236,7 @@ def test_learn_and_predict_clis_on_the_cpu(rng, tmp_path, monkeypatch):
     over = np.asarray(Image.open(tmp_path / "out" / "overlay" / "camera_0" / pngs[-1]))
     assert over.shape == (H, W, 3) and not np.array_equal(over, im)
     if not torch.cuda.is_available():  # every CLI defaults to the card
-        for main, args in ((preprocess.main, []), (train.main, []),
+        for main, args in ((preprocess.main, []), (train.main, []), (train.main, ["--dp"]),
                            (predict.main, ["--episode", "x", "--params", "y"])):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 main(["--config", str(cfg), *args])
