@@ -10,7 +10,8 @@ Phases, each printing one JSON line:
      -sass` must find HGMMA (wgmma) instructions in each of the GEMM's three
      instantiations (128 and 256 wide, 128 with residuals), and MUFU
      instructions in the transcendental variant of the hot-loop probe
-     (kernel #4) and none in its polynomial variant.
+     (kernel #4) and none in its polynomial variant; the probe's loop body
+     counted a pair by pipe (FP32, ALU, MUFU, all: `hot_loop_pipes`).
   2. kernels: each compositor variant (forward, forward with presort,
      backward, backward with presort) against its plain PyTorch version on
      real 720p tile inputs (8192 and 16384 Gaussians, and a saturating
@@ -21,7 +22,11 @@ Phases, each printing one JSON line:
      gap included, as PRs 1-3 timed it) and the kernel's device ms a call
      from `torch.profiler`, and the card's bound for the visible pairs'
      work and the bytes the function needs, beside a bound that charges
-     every processed pair its falloff; the GNN GEMM at the forward's
+     every processed pair its falloff; every forward check also holds each
+     final log T within LOGT_TOL (1e-3, under one alpha-cut step); the four
+     variants on tools/cut_stress.py's inputs (`cut_stress` rows: thousands
+     of alphas within a few ulps of the 1/255 cut, at the slice and online
+     shapes), with the tiles whose outputs differ; the GNN GEMM at the forward's
      product shapes (`w2r` 63,000 x 512 x 512, `w2p` 16,000 x 512, `wt_rs`
      16,000 x 1024, the head 16,000 x 8, the residual `wp1` 16,000 x 512)
      against its plain version and `torch.matmul` (a call back to back and
@@ -103,12 +108,20 @@ Phases, each printing one JSON line:
      port's `read_png`.
 
  12. probes: kernel #5 (`dynamic_roll`) bit-equal to `torch.roll` at shifts
-     0, 3, 130, 511, -1 and 515; kernel #4 (`composite_hot_loop`) at the
-     TPU probe's shape (T 128, K 512, sub 64 and 128), both variants,
-     against its plain version within tests/test_torch_probes.py's
-     tolerance; then the probe paths with the launch counters at 0:
-     tools/dynamic_roll_probe.py and tools/transcendental_probe.py's A/B
-     (us a granule, the transcendental share, each variant's bound).
+     0, 3, 130, 511, -1 and 515, its call back to back (allocating its
+     output, and into the caller's) against `torch.roll`'s (in turns, 5
+     rounds), and its bound: the larger of its bytes'
+     time and the launch floor, the device time of a kernel that does
+     nothing launched by the same ctypes path; kernel #4
+     (`composite_hot_loop`) at the TPU probe's shape (T 128, K 512, sub 64
+     and 128), both variants, against its plain version within
+     tests/test_torch_probes.py's tolerance; then the probe paths with the
+     launch counters at 0: tools/dynamic_roll_probe.py and
+     tools/transcendental_probe.py's A/B (us a granule, the transcendental
+     share, each variant's bound: the operations a pair its function needs,
+     counted from the probe's source pipe by pipe, and its bytes; beside
+     it, a diagnostic, the bound of its loop's own SASS by pipe and by
+     issue slot).
  13. reference: `rasterize` against the dense `render_reference` on a
      120-Gaussian 40x64 scene (values and gradients).
  14. masks: `python -m gsdx_torch.apps.masks` obtain, merge, initpcd and
@@ -177,6 +190,9 @@ PEAK_BF16_FLOP_S = 989e12  # H100 SXM bf16 tensor cores, dense
 MUFU_PER_SM_CLK = 16
 SMS = 132
 REL_TOL = 1e-4  # allclose(rtol, atol) for kernel vs plain, f32 sums in another order
+# max |kernel - plain| of a final log T: under one step of the alpha cut,
+# log1p(-1/255) = -0.003929, which REL_TOL misses wherever |log T| > 38
+LOGT_TOL = 1e-3
 
 
 def emit(obj: dict) -> None:
@@ -219,18 +235,25 @@ def kernel_device_ms(fn, pattern: str, calls: int = 30, warmup: int = 3) -> floa
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    # now and then a session records no kernel at all (seen once in some 250
-    # sessions of tools/composite_ablation.py): take another
+    # a session may miss some kernels: 1-2 of 30 in every session of the
+    # predict phase in some runs, a third of them once (in
+    # tools/transcendental_probe.py), all of them once in some 250 sessions
+    # of tools/composite_ablation.py. The time a call is the mean of the
+    # kernels seen, times the kernels a call; a session that missed more
+    # than a fifth is taken again
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and re.search(pattern, e.key))
-        if us:
-            return us / 1e3 / calls
-    raise AssertionError(f"the profiler saw no device time of {pattern!r} in 3 sessions")
+        seen = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and re.search(pattern, e.key)]
+        n = sum(e.count for e in seen)
+        per_call = max(1, round(n / calls))
+        if n >= 0.8 * per_call * calls:
+            return sum(e.self_device_time_total for e in seen) / 1e3 / n * per_call
+    raise AssertionError(f"the profiler saw {n} kernels matching {pattern!r} in "
+                         f"{calls} calls in the last of 3 sessions")
 
 
 def cuda_ms_back_to_back(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -474,6 +497,104 @@ def mufu_counts(path) -> dict:
     return out
 
 
+# SASS opcodes by the pipe that runs them, with its lanes an SM a clock on
+# Hopper (CUDA C++ Programming Guide, throughput of native arithmetic
+# instructions, compute capability 9.0): FP32 add, multiply and
+# multiply-add 128; integer, compare, min/max, select, shift and logical 64;
+# MUFU (exp2, log2, rcp, ...) and type conversions 16. Every other
+# instruction (loads, stores, moves, branches, shuffles) only takes an issue
+# slot: 4 warp-instructions a clock, 128 lanes.
+PIPE_LANES = {"fp32": 128, "alu": 64, "mufu": 16}
+FP32_OPS = {"FADD", "FMUL", "FFMA", "FADD32I", "FMUL32I", "FFMA32I"}
+MUFU_OPS = {"MUFU", "I2F", "F2I", "F2F", "FRND"}
+ALU_OPS = {"FSETP", "FSEL", "FMNMX", "FSET", "ISETP", "IADD3", "IMAD", "LOP3", "SHF", "SEL",
+           "LEA", "IMNMX", "IABS", "PRMT", "PLOP3", "FCHK", "I2FP", "F2IP", "VIMNMX", "IADD",
+           "IMUL", "LOP", "SHL", "SHR", "BMSK", "FLO", "POPC", "BREV"}
+ISSUE_LANES = 128
+
+
+def sass_loop_pipes(part: str) -> dict:
+    """Instructions by pipe in the innermost loop of one function's SASS
+    (``part``, as `sass_functions` splits it) that holds the most
+    instructions: counts for "fp32", "alu", "mufu" (MUFU.EX2 and MUFU.LG2
+    also apart), "other", and "issue" (all but NOP)."""
+    insts, labels, pending = [], {}, []
+    for ln in part.splitlines():
+        m = re.match(r"\s*(\.L_x_\d+):", ln)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", ln)
+        if not m:
+            continue
+        addr = int(m.group(1), 16)
+        for name in pending:
+            labels[name] = addr
+        pending = []
+        insts.append((addr, re.sub(r"^@!?U?P\w+\s+", "", m.group(2).strip())))
+    loops = {}
+    for addr, text in insts:
+        if not text.startswith("BRA"):
+            continue
+        m = re.search(r"`\((\.L_x_\d+)\)|(0x[0-9a-f]+)", text)
+        if not m:
+            continue
+        target = labels.get(m.group(1)) if m.group(1) else int(m.group(2), 16)
+        if target is not None and target <= addr:
+            loops[target] = max(loops.get(target, addr), addr)
+    spans = sorted(loops.items())
+    inner = [(a, b) for a, b in spans
+             if not any((c, d) != (a, b) and a <= c and d <= b for c, d in spans)]
+    if not inner:
+        raise AssertionError("no loop in the SASS")
+    body = max(([t for addr, t in insts if a <= addr <= b] for a, b in inner), key=len)
+    out = {"fp32": 0, "alu": 0, "mufu": 0, "other": 0, "issue": 0,
+           "MUFU.EX2": 0, "MUFU.LG2": 0, "FMNMX": 0}
+    for text in body:
+        op = text.split()[0]
+        base = op.split(".")[0]
+        if base == "NOP":
+            continue
+        out["issue"] += 1
+        kind = ("fp32" if base in FP32_OPS else "mufu" if base in MUFU_OPS
+                else "alu" if base in ALU_OPS else "other")
+        out[kind] += 1
+        for k in ("MUFU.EX2", "MUFU.LG2", "FMNMX"):
+            out[k] += op.startswith(k)
+    return out
+
+
+def hot_loop_pipes(path, dump: str | None = None) -> dict:
+    """Kernel #4's loop body a (splat, pixel) pair, by pipe, in each
+    instantiation of the library at ``path`` ("transcend_<sub>" /
+    "poly_<sub>"), with the clocks a pair costs an SM on each pipe and on
+    the issue slots. The pairs a loop iteration are its FMNMX count: the
+    alpha's clamp, fminf(0.99, .), is the loop's one float min a pair in
+    both variants. With ``dump``, each function's SASS is written to
+    ``dump``_<variant>_<sub>.sass."""
+    raw = {}
+    for name, part in sass_functions(path).items():
+        m = re.search(r"hot_loop_kernelILb([01])ELi(\d+)E", name)
+        if m:
+            key = ("transcend" if m.group(1) == "1" else "poly", int(m.group(2)))
+            raw[key] = sass_loop_pipes(part)
+            if dump:
+                with open(f"{dump}_{key[0]}_{key[1]}.sass", "w") as f:
+                    f.write(part)
+    out = {}
+    for (variant, sub), c in sorted(raw.items()):
+        pairs = c["FMNMX"]
+        if not pairs:
+            raise AssertionError(f"hot loop {variant} sub {sub}: no FMNMX in its loop: {c}")
+        row = {k: v / pairs for k, v in c.items()}
+        clk = {k: row[k] / lanes for k, lanes in PIPE_LANES.items()}
+        row.update(pairs_a_loop=pairs, clk_a_pair=clk,
+                   clk_a_pair_issue=row["issue"] / ISSUE_LANES,
+                   bound_pipe=max(clk, key=clk.get))
+        out[f"{variant}_{sub}"] = row
+    return out
+
+
 def phase_build() -> dict:
     """One nvcc per kernel source, all started together; each of the GEMM's
     three instantiations must hold wgmma (HGMMA) instructions in its SASS,
@@ -513,6 +634,7 @@ def phase_build() -> dict:
             "libraries": [lib.path().name for lib in libs],
             "ptxas": ptxas, "gemm_hgmma_instructions": hgmma,
             "probe_mufu": mufu_counts(probes.LIBRARY.path()),
+            "probe_pipes": hot_loop_pipes(probes.LIBRARY.path()),
             "kernels": ["composite_fwd", "composite_fwd_presort",
                         "composite_bwd", "composite_bwd_presort",
                         "gnn_linear", "gnn_gemm", "gnn_edge_first", "gnn_segments",
@@ -521,9 +643,9 @@ def phase_build() -> dict:
 
 def check_forward(tf, counts, geo: dict, presort: bool, what: str):
     """The forward kernel against its plain version on the same inputs:
-    `nproc` equal on every tile, the outputs within REL_TOL, rank and
-    sorted features equal. Returns (kernel outputs, max |err|, the launch
-    read back from the library)."""
+    `nproc` equal on every tile, the outputs within REL_TOL, every final
+    log T within LOGT_TOL, rank and sorted features equal. Returns (kernel
+    outputs, max |err|, the launch read back from the library)."""
     from gsdx_torch.kernels import composite as C
 
     kw = dict(geo, presort=presort)
@@ -535,6 +657,12 @@ def check_forward(tf, counts, geo: dict, presort: bool, what: str):
     flips = int((out_k[2] != out_p[2]).sum())
     if flips:
         raise AssertionError(f"nproc differs on {flips} tiles ({what})")
+    lt_diff = (out_k[1] - out_p[1]).abs().flatten(1).amax(1)
+    if float(lt_diff.max()) >= LOGT_TOL:
+        raise AssertionError(
+            f"log T differs by {float(lt_diff.max())} >= {LOGT_TOL} on "
+            f"{int((lt_diff >= LOGT_TOL).sum())} tiles ({what}): "
+            f"{largest_difference(out_k, out_p, counts, geo['sub_chunk'], geo['tile_w'])}")
     err = 0.0
     for a, b in zip(out_k[:2], out_p[:2]):
         torch.testing.assert_close(a, b, rtol=REL_TOL, atol=REL_TOL)
@@ -546,6 +674,31 @@ def check_forward(tf, counts, geo: dict, presort: bool, what: str):
         raise AssertionError(f"forward launched {launch}: expected clusters of >= 2 "
                              f"blocks, {tf.shape[0]} of them ({what})")
     return out_k, err, launch
+
+
+def check_backward(feats, counts, nproc, logt, geo: dict, rank=None):
+    """The backward kernel against its plain version on random output
+    gradients (seed 1): each feature row within REL_TOL of its own largest
+    entry (the conic rows grow with dx^2 and would swamp the mean and
+    opacity rows under one scale). Returns (the kernel's arguments, the plain
+    version's, the kernel's gradient, the plain one, the launch read back,
+    each row's scale)."""
+    from gsdx_torch.kernels import composite as C
+
+    T, P = feats.shape[0], geo["tile_h"] * geo["tile_w"]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    g_acc = torch.randn(T, geo["n_accum"], P, device="cuda", generator=g)
+    g_lt = torch.randn(T, 1, P, device="cuda", generator=g)
+    args_k = (feats, counts, nproc, logt, g_acc, g_lt, rank)
+    args_p = (feats, counts, nproc, g_acc, g_lt, rank)
+    grad_k = C.composite_bwd(*args_k, **geo)
+    launch = C.last_launch()
+    grad_p = C.composite_bwd_torch(*args_p, **geo)
+    torch.cuda.synchronize()
+    scale = grad_p.abs().amax(dim=(0, 2), keepdim=True)
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    torch.testing.assert_close(grad_k / scale, grad_p / scale, rtol=0, atol=REL_TOL)
+    return args_k, args_p, grad_k, grad_p, launch, scale
 
 
 def compare_kernels(n: int, presort: bool, clk_mhz: float,
@@ -561,23 +714,10 @@ def compare_kernels(n: int, presort: bool, clk_mhz: float,
     out_k, err_f, launch_f = check_forward(tf, counts, geo, presort, f"n={n}")
     nproc_k, flips = out_k[2], 0
 
-    g = torch.Generator(device="cuda").manual_seed(1)
-    g_acc = torch.randn(T, nacc, P, device="cuda", generator=g)
-    g_lt = torch.randn(T, 1, P, device="cuda", generator=g)
     feats_b = out_k[4] if presort else tf
     rank = out_k[3] if presort else None
-    args_b = (feats_b, counts, nproc_k, out_k[1], g_acc, g_lt, rank)
-    grad_k = C.composite_bwd(*args_b, **geo)
-    launch_b = C.last_launch()
-    args_p = (feats_b, counts, nproc_k, g_acc, g_lt, rank)
-    grad_p = C.composite_bwd_torch(*args_p, **geo)
-    torch.cuda.synchronize()
-    # each feature row against its own largest entry: the conic rows grow
-    # with dx^2 and would swamp the mean and opacity rows under one scale
-    scale = grad_p.abs().amax(dim=(0, 2), keepdim=True)
-    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
-    torch.testing.assert_close(grad_k / scale, grad_p / scale, rtol=0,
-                               atol=REL_TOL)
+    args_b, args_p, grad_k, grad_p, launch_b, scale = check_backward(
+        feats_b, counts, nproc_k, out_k[1], geo, rank)
     err_b = float((grad_k - grad_p).abs().max())
     repeat_equal = bool(torch.equal(C.composite_bwd(*args_b, **geo), grad_k))
     if not repeat_equal:
@@ -638,16 +778,50 @@ def compare_kernels(n: int, presort: bool, clk_mhz: float,
     ]
 
 
+def check_cut_stress(presort: bool, seed: int = 0) -> dict:
+    """#1 and #2 (with ``presort``, #1p and #2p) against their plain versions
+    on tools/cut_stress.py's inputs, whose targeted pairs put alpha within a
+    few ulps of the 1/255 cut: the forward by `check_forward` (nproc equal,
+    REL_TOL, every log T within LOGT_TOL), the backward within REL_TOL of
+    each gradient row's largest entry. Returns the targets, the tiles whose
+    outputs differ at all and the largest differences."""
+    from gsdx_torch.kernels import composite as C
+
+    feats, c, geo, targets = load_tool("cut_stress").cut_stress_inputs(seed, 7, presort)
+    tf, counts = torch.from_numpy(feats).cuda(), torch.from_numpy(c).cuda()
+    T, _, K = tf.shape
+    what = f"cut stress, presort {presort}"
+    out_k, err_f, _ = check_forward(tf, counts, geo, presort, what)
+    with torch.no_grad():
+        out_p = C.composite_tiles_torch(tf, counts, **geo, presort=presort)
+    diff = largest_difference(out_k, out_p, counts, geo["sub_chunk"], geo["tile_w"])
+    feats_b, rank = (out_k[4], out_k[3]) if presort else (tf, None)
+    _, _, grad_k, grad_p, _, scale = check_backward(feats_b, counts, out_k[2], out_k[1],
+                                                    geo, rank)
+    return {"presort": presort, "T": T, "K": K, "tile_h": geo["tile_h"],
+            "sub": geo["sub_chunk"], "n_accum": geo["n_accum"],
+            "busy_tiles": int((counts > 0).sum()), "targets": int(len(targets["tile"])),
+            "early_stopped_tiles": int((out_k[2].long() * geo["sub_chunk"]
+                                        < counts.long()).sum()),
+            "tiles_differing": diff["tiles_differing"],
+            "max_logt_diff": float((out_k[1] - out_p[1]).abs().max()),
+            "fwd_max_abs_err": err_f, "largest_difference": diff,
+            "bwd_max_row_rel_err": float(((grad_k - grad_p).abs() / scale).max())}
+
+
 def phase_kernels(clk_mhz: float) -> list[dict]:
     """Every variant at the main path's shapes (8192 Gaussians: T 230, K 512,
     P 4096, sub 64, 7 channels), at 16k (T 450, P 2048, sub 128), and on a
-    saturating 8192-Gaussian scene whose tiles stop early."""
+    saturating 8192-Gaussian scene whose tiles stop early; then the four
+    variants on tools/cut_stress.py's inputs at the slice and online shapes."""
     rows = []
     for n, saturating in ((8192, False), (16384, False), (8192, True)):
         for presort in (False, True):
             for r in compare_kernels(n, presort, clk_mhz, saturating):
                 emit(dict(r, phase="kernels"))
                 rows.append(r)
+    for presort in (False, True):
+        emit(dict(check_cut_stress(presort), phase="cut_stress"))
     return rows
 
 
@@ -682,6 +856,11 @@ def close_to_largest(a, b, share) -> dict:
     return out
 
 
+# kernel #4's bounds, as `tools/transcendental_probe.py` `ab` gives them
+SUB_BOUND_KEYS = ("bound_ms", "bound_by", "bound_pipe", "bound_bytes", "bound_ms_sass",
+                  "bound_pipe_sass", "bound_ms_issue_sass")
+
+
 def phase_probes(clk_mhz: float) -> tuple[dict, list[dict]]:
     """Kernels #4 and #5 against their plain versions, then their probe
     paths (tools/dynamic_roll_probe.py, the A/B of
@@ -696,13 +875,18 @@ def phase_probes(clk_mhz: float) -> tuple[dict, list[dict]]:
         if not torch.equal(PR.dynamic_roll(x, s), torch.roll(x, shift, dims=1)):
             raise AssertionError(f"dynamic_roll differs from torch.roll at shift {shift}")
     s = torch.tensor([130], dtype=torch.int32, device="cuda")
-    roll = {"name": "dynamic_roll", "R": 8, "W": 512, "max_abs_err": 0.0,
-            "ms": cuda_ms_back_to_back(lambda: PR.dynamic_roll(x, s), reps=200),
-            "plain_ms": cuda_ms_back_to_back(lambda: PR.dynamic_roll_plain(x, s), reps=200),
-            "library_ms": cuda_ms_back_to_back(lambda: torch.roll(x, 130, dims=1), reps=200),
-            "device_ms": kernel_device_ms(lambda: PR.dynamic_roll(x, s), r"roll_kernel"),
-            "library_device_ms": kernel_device_ms(lambda: torch.roll(x, 130, dims=1), r"roll")}
-    roll["bound_ms"], roll["bound_by"] = bound_ms(2 * 8 * 512 * 4 + 4, 0, 0, clk_mhz)
+    # a call back to back against torch.roll's, in turns, and its pieces
+    roll = load_tool("dynamic_roll_probe").call_times()
+    roll.update({
+        "name": "dynamic_roll", "R": 8, "W": 512, "max_abs_err": 0.0,
+        "plain_ms": cuda_ms_back_to_back(lambda: PR.dynamic_roll_plain(x, s), reps=200),
+        "device_ms": kernel_device_ms(lambda: PR.dynamic_roll(x, s), r"roll_kernel"),
+        "library_device_ms": kernel_device_ms(lambda: torch.roll(x, 130, dims=1), r"roll"),
+        # the floor of any launch: a kernel that does nothing, by the same path
+        "launch_floor_ms": kernel_device_ms(lambda: PR.empty_launch(0), r"empty_kernel")})
+    roll["bytes_bound_ms"] = bound_ms(2 * 8 * 512 * 4 + 4, 0, 0, clk_mhz)[0]
+    roll["bound_ms"] = max(roll["bytes_bound_ms"], roll["launch_floor_ms"])
+    roll["bound_by"] = "launch" if roll["launch_floor_ms"] > roll["bytes_bound_ms"] else "bytes"
 
     # kernel #4 at the probe's shape, both variants, sub 64 and 128, on the
     # probe's data and on splats that cover every pixel (the share of
@@ -742,16 +926,21 @@ def phase_probes(clk_mhz: float) -> tuple[dict, list[dict]]:
         name = "transcend" if v else "poly"
         main = ab[0]  # sub 64, kernel #1's granule at 720p
         c = checks[(64, v)]
+        # the bound: the function's operations a pair by pipe, counted from
+        # its source (or the bytes, were they more); the loop's own SASS by
+        # pipe and by issue slot beside it, a diagnostic
         rows.append({
             "name": "probe_transcendental" + ("" if v else "_poly"), "sub": 64,
             "launches": launches["hot_loop" if v else "hot_loop_poly"],
             "max_abs_err": max(checks[(sub, v)]["max_abs_err"] for sub in tp.SUBS),
             "ms": c["ms"], "device_ms": main[f"device_ms_{name}"],
-            "plain_ms": c["plain_ms"], "bound_ms": main[f"bound_ms_{name}"],
-            "bound_by": main[f"bound_by_{name}"], "library_ms": None,
+            "plain_ms": c["plain_ms"],
+            **{k: main[f"{k}_{name}"] for k in SUB_BOUND_KEYS},
+            "function_a_pair": main[f"function_a_pair_{name}"],
+            "sass_a_pair": main[f"sass_a_pair_{name}"], "library_ms": None,
             "sub128": {"ms": checks[(128, v)]["ms"], "plain_ms": checks[(128, v)]["plain_ms"],
                        "device_ms": ab[1][f"device_ms_{name}"],
-                       "bound_ms": ab[1][f"bound_ms_{name}"]}})
+                       **{k: ab[1][f"{k}_{name}"] for k in SUB_BOUND_KEYS}}})
     out = {"phase": "probes", "launches": launches,
            "transcendental_share": {f"sub{r['sub']}": r["transcendental_share"] for r in ab},
            "us_per_granule": {f"sub{r['sub']}": {"transcend": r["us_per_granule_transcend"],
@@ -1710,6 +1899,7 @@ def compare_fwd_at(tf, counts, geo: dict, clk_mhz: float, what: str,
             "pairs_processed": pairs["processed"], "pairs_visible": visible,
             "kept_share": pairs["patch_kept"] / max(1, pairs["patch_pairs"]),
             "max_abs_err": err, "launch": launch,
+            "max_logt_diff": float((out_k[1] - out_p[1]).abs().max()),
             "largest_difference": largest_difference(out_k, out_p, counts, geo["sub_chunk"],
                                                      geo["tile_w"]),
             "ms": cuda_ms(lambda: C.composite_fwd(tf, counts, **kw)),
@@ -1727,23 +1917,12 @@ def compare_bwd_at(tf, counts, geo: dict, clk_mhz: float, presort: bool = False)
     from gsdx_torch.kernels import composite as C
 
     T, _, K = tf.shape
-    P = geo["tile_h"] * geo["tile_w"]
     nacc = geo["n_accum"]
     out_k = C.composite_fwd(tf, counts, **geo, presort=presort)
     nproc = out_k[2]
     feats, rank = (out_k[4], out_k[3]) if presort else (tf, None)
-    g = torch.Generator(device="cuda").manual_seed(1)
-    g_acc = torch.randn(T, nacc, P, device="cuda", generator=g)
-    g_lt = torch.randn(T, 1, P, device="cuda", generator=g)
-    args = (feats, counts, nproc, out_k[1], g_acc, g_lt, rank)
-    args_p = (feats, counts, nproc, g_acc, g_lt, rank)
-    grad_k = C.composite_bwd(*args, **geo)
-    launch = C.last_launch()
-    grad_p = C.composite_bwd_torch(*args_p, **geo)
-    torch.cuda.synchronize()
-    scale = grad_p.abs().amax(dim=(0, 2), keepdim=True)
-    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
-    torch.testing.assert_close(grad_k / scale, grad_p / scale, rtol=0, atol=REL_TOL)
+    args, args_p, grad_k, grad_p, launch, scale = check_backward(
+        feats, counts, nproc, out_k[1], geo, rank)
     if launch["cluster"] < 2 or launch["blocks"] != T * launch["cluster"]:
         raise AssertionError(f"backward launched {launch}: expected clusters of >= 2 "
                              f"blocks, {T} of them")

@@ -90,6 +90,21 @@ __host__ __device__ constexpr int patch_h() { return 32 / PATCH_W * PPT; }
 static_assert(8 % patch_h<PPT_FWD>() == 0 && 8 % patch_h<PPT_BWD>() == 0,
               "a warp's patch divides 8 rows: tile_h is a multiple of 8");
 
+// The splat's exponent at (dx, dy) in the plain version's order and
+// rounding (kernels/composite.py `_composite_batch`, gsdx's formula): each
+// product and sum rounded on its own. nvcc contracts a plain expression into
+// FMAs, whose power parts from the plain one by an ulp in about a quarter of
+// the pairs, and an alpha within rounding of 1/255 then falls on the other
+// side of the cut. The _rn intrinsics are never contracted, so every power,
+// alpha and cut decision is bit-equal to the plain version's on the card
+// (both take libdevice's expf).
+__device__ __forceinline__ float falloff(float ca, float cb, float cc, float dx, float dy) {
+  const float t = __fmul_rn(__fmul_rn(ca, dx), dx);
+  const float u = __fmul_rn(__fmul_rn(cc, dy), dy);
+  const float s = __fmul_rn(-0.5f, __fadd_rn(t, u));
+  return __fsub_rn(s, __fmul_rn(__fmul_rn(cb, dx), dy));
+}
+
 // Bounding box (x0, x1, y0, y1) of {pixel : opacity * exp(power) >= 1/255},
 // widened against f32 rounding. Opacity below the cut gives an empty box; a
 // conic that is not positive definite an unbounded one; a NaN anywhere a NaN
@@ -325,9 +340,9 @@ fwd_kernel(const float* __restrict__ feats, const int* __restrict__ counts,
 #pragma unroll
         for (int j = 0; j < PPT; ++j) {
           const float dy = pix.py0 + static_cast<float>(j) - my;
-          const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
+          const float power = falloff(ca, cb, cc, dx, dy);
           if (power > 0.f) continue;
-          const float a = fminf(ALPHA_MAX, op * expf(power));
+          const float a = fminf(ALPHA_MAX, __fmul_rn(op, expf(power)));
           if (!(a >= ALPHA_MIN)) continue;
           const float w = a * expf(lt[j]);
 #pragma unroll
@@ -465,10 +480,10 @@ bwd_kernel(const float* __restrict__ feats, const int* __restrict__ counts,
 #pragma unroll
           for (int j = 0; j < PPT; ++j) {
             const float dy = pix.py0 + static_cast<float>(j) - my;
-            const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
+            const float power = falloff(ca, cb, cc, dx, dy);
             if (power > 0.f) continue;
             const float e = expf(power);
-            const float pre = op * e;
+            const float pre = __fmul_rn(op, e);
             const float a = fminf(ALPHA_MAX, pre);
             if (!(a >= ALPHA_MIN)) continue;
             any = 1;

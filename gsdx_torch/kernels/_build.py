@@ -16,6 +16,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -91,3 +93,27 @@ class CudaLibrary:
         if err != 0:
             msg = getattr(self.load(), self.error_string)(err).decode()
             raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
+
+
+class Launcher:
+    """One exported C function of a `CudaLibrary`, called with as little
+    host work as ctypes allows: the function is resolved once, at the first
+    call, and the stream argument is the raw handle of PyTorch's current
+    stream on the device (`torch._C._cuda_getCurrentRawStream`), taken
+    without building a `torch.cuda.Stream`. The caller checks the tensors
+    and calls the instance with the device index, then the pointers and
+    sizes; the handle goes last. Raises if the launch returned a CUDA error."""
+
+    __slots__ = ("library", "name", "what", "fn", "stream")
+
+    def __init__(self, library: CudaLibrary, name: str, what: str):
+        self.library, self.name, self.what = library, name, what
+        self.fn = self.stream = None
+
+    def __call__(self, device_index: int, *args) -> None:
+        if self.fn is None:  # the CPU build of torch has no raw-stream getter
+            self.stream = torch._C._cuda_getCurrentRawStream
+            self.fn = getattr(self.library.load(), self.name)
+        err = self.fn(*args, self.stream(device_index))
+        if err:
+            self.library.check(err, self.what)

@@ -12,7 +12,10 @@
 
 Both wrappers launch the hand-written CUDA kernels of
 `gsdx_torch/csrc/probes.cu` for CUDA tensors (or raise) and run the plain
-version for CPU tensors. `LAUNCHES` counts the kernel launches.
+version for CPU tensors, through `_build.Launcher` (the C function resolved
+once, the stream's raw handle). `LAUNCHES` counts the kernel launches.
+`empty_launch` launches a kernel that does nothing by the same path: its
+device time is the floor of any launch, and so of #5's bound.
 `tools/transcendental_probe.py` and `tools/dynamic_roll_probe.py` drive them.
 """
 
@@ -20,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from gsdx_torch.kernels._build import I32, PTR, CudaLibrary
+from gsdx_torch.kernels._build import I32, PTR, CudaLibrary, Launcher
 
 FEAT_DIM = 16
 TILE_H, TILE_W = 16, 128
@@ -29,15 +32,22 @@ N_ACCUM = 4
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 SUBS = (64, 128)  # granule widths the kernel is built for
+MAX_T = 8192  # tiles a hot-loop launch (its sort's shared memory)
 
+F32, I32T = torch.float32, torch.int32
+_ONE = torch.Size([1])
 # Kernel launches per variant, counted by the wrappers where they launch.
 LAUNCHES = {"hot_loop": 0, "hot_loop_poly": 0, "dynamic_roll": 0}
 
 LIBRARY = CudaLibrary(
     "gsdx_probes", "probes.cu",
-    {"gsdx_probe_hot_loop": [PTR] * 4 + [I32] * 4 + [PTR],
-     "gsdx_probe_roll": [PTR] * 3 + [I32] * 2 + [PTR]},
+    {"gsdx_probe_hot_loop": [PTR] * 5 + [I32] * 4 + [PTR],
+     "gsdx_probe_roll": [PTR] * 3 + [I32] * 2 + [PTR],
+     "gsdx_probe_empty": [PTR]},
     error_string="gsdx_probes_error_string")
+_HOT_LOOP = Launcher(LIBRARY, "gsdx_probe_hot_loop", "composite_hot_loop")
+_ROLL = Launcher(LIBRARY, "gsdx_probe_roll", "dynamic_roll")
+_EMPTY = Launcher(LIBRARY, "gsdx_probe_empty", "empty_launch")
 
 
 def reset_launches() -> None:
@@ -106,9 +116,12 @@ def composite_hot_loop_plain(feats: torch.Tensor, counts: torch.Tensor,
 
 def composite_hot_loop(feats: torch.Tensor, counts: torch.Tensor, sub: int,
                        transcend: bool):
-    """Kernel #4. ``feats`` (T, 16, K) f32, ``counts`` (T,) i32 (clamped to
-    [0, K]) with K a multiple of ``sub`` (64 or 128). CUDA tensors launch the kernel;
-    CPU tensors run `composite_hot_loop_plain`."""
+    """Kernel #4. ``feats`` (T, 16, K) f32, 16-byte aligned, ``counts`` (T,)
+    i32 (clamped to [0, K]) with K a multiple of ``sub`` (64 or 128) and T
+    at most MAX_T. CUDA tensors launch the kernel; CPU tensors run
+    `composite_hot_loop_plain`. With ``transcend`` the kernel's exp and
+    log1p are MUFU approximations (ex2/lg2.approx), within the probe's check
+    of the plain version's libm ones."""
     if not feats.is_cuda:
         return composite_hot_loop_plain(feats, counts, sub, transcend)
     T, F, K = feats.shape
@@ -118,14 +131,16 @@ def composite_hot_loop(feats: torch.Tensor, counts: torch.Tensor, sub: int,
         raise ValueError("feats must be float32 and counts int32")
     if sub not in SUBS or K % sub:
         raise ValueError(f"sub {sub} / K {K} unsupported (sub in {SUBS}, dividing K)")
+    if T > MAX_T:
+        raise ValueError(f"{T} tiles: the kernel takes at most {MAX_T}")
     dev = _check_cuda(feats=feats, counts=counts)
+    if feats.data_ptr() % 16:
+        raise ValueError("feats must be 16-byte aligned")
     accum = torch.empty((T, N_ACCUM, P), device=dev)
     logt = torch.empty((T, 1, P), device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = LIBRARY.load().gsdx_probe_hot_loop(
-        feats.data_ptr(), counts.data_ptr(), accum.data_ptr(), logt.data_ptr(),
-        T, K, sub, int(transcend), stream)
-    LIBRARY.check(err, "composite_hot_loop")
+    next_unit = torch.empty(1, dtype=torch.int32, device=dev)
+    _HOT_LOOP(dev.index, feats.data_ptr(), counts.data_ptr(), accum.data_ptr(),
+              logt.data_ptr(), next_unit.data_ptr(), T, K, sub, int(transcend))
     LAUNCHES["hot_loop" if transcend else "hot_loop_poly"] += 1
     return accum, logt
 
@@ -140,21 +155,74 @@ def dynamic_roll_plain(x: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
     return torch.roll(x, int(shift.reshape(-1)[0]), dims=1)
 
 
-def dynamic_roll(x: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
-    """Kernel #5. ``x`` (R, W) f32, ``shift`` (1,) i32. CUDA tensors launch
-    the kernel, which reads the shift on the device; CPU tensors run
-    `dynamic_roll_plain`."""
-    if not x.is_cuda:
+def dynamic_roll(x: torch.Tensor, shift: torch.Tensor,
+                 out: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel #5. ``x`` (R, W) f32, ``shift`` (1,) i32, both contiguous on
+    one device. CUDA tensors launch the kernel, which reads the shift on the
+    device; CPU tensors run `dynamic_roll_plain`. ``out``, where the caller
+    gives one, is a contiguous f32 tensor of x's shape on x's device apart
+    from x: the result is written there and returned, and the call
+    allocates nothing.
+
+    The kernel takes about a microsecond of the device, so the call's host
+    work is its time: each tensor method call costs a fraction of a
+    microsecond, so the checks are one expression each, reading every
+    attribute once (`_refuse_roll` names what failed), and `Launcher`
+    holds the C function and the stream getter, bound once."""
+    dev = x.get_device()
+    if dev < 0:
+        if out is not None:
+            _refuse_roll(x, shift, out, cuda=False)
+            return out.copy_(dynamic_roll_plain(x, shift))
         return dynamic_roll_plain(x, shift)
+    xs = x.shape
+    if not (x.dtype is F32 and len(xs) == 2 and shift.dtype is I32T and shift.shape == _ONE
+            and shift.get_device() == dev and x.is_contiguous()):
+        _refuse_roll(x, shift, out)
+    px = x.data_ptr()
+    if out is None:
+        out = torch.empty_like(x)
+        po = out.data_ptr()
+    else:
+        po, n = out.data_ptr(), 4 * xs[0] * xs[1]
+        if not (out.dtype is F32 and out.shape == xs and out.get_device() == dev
+                and out.is_contiguous() and (po + n <= px or px + n <= po)):
+            _refuse_roll(x, shift, out)
+    _ROLL(dev, px, shift.data_ptr(), po, xs[0], xs[1])
+    LAUNCHES["dynamic_roll"] += 1
+    return out
+
+
+def _apart(x: torch.Tensor, out: torch.Tensor) -> bool:
+    """Whether two contiguous tensors' bytes do not overlap."""
+    n = x.numel() * x.element_size()
+    return out.data_ptr() + n <= x.data_ptr() or x.data_ptr() + n <= out.data_ptr()
+
+
+def _refuse_roll(x: torch.Tensor, shift: torch.Tensor, out: torch.Tensor | None = None,
+                 cuda: bool = True) -> None:
+    """Raise the error that one of `dynamic_roll`'s one-expression checks
+    stands for (``cuda``: the tensors must also be contiguous CUDA tensors
+    on one device)."""
     if x.dim() != 2 or x.dtype != torch.float32:
         raise ValueError("x must be a 2-D float32 tensor")
     if shift.shape != (1,) or shift.dtype != torch.int32:
         raise ValueError("shift must be a (1,) int32 tensor")
-    dev = _check_cuda(x=x, shift=shift)
-    out = torch.empty_like(x)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = LIBRARY.load().gsdx_probe_roll(x.data_ptr(), shift.data_ptr(), out.data_ptr(),
-                                         x.shape[0], x.shape[1], stream)
-    LIBRARY.check(err, "dynamic_roll")
-    LAUNCHES["dynamic_roll"] += 1
-    return out
+    tensors = {"x": x, "shift": shift}
+    if out is not None:
+        if out.shape != x.shape or out.dtype != torch.float32:
+            raise ValueError("out must be a float32 tensor of x's shape")
+        if out.device != x.device:
+            raise ValueError(f"out is on {out.device}, expected {x.device}")
+        tensors["out"] = out
+    if cuda:
+        _check_cuda(**tensors)
+    if out is not None and not (out.is_contiguous() and _apart(x, out)):
+        raise ValueError("out must be contiguous and must not overlap x")
+
+
+def empty_launch(device_index: int) -> None:
+    """One launch, on the current stream of CUDA device ``device_index`` and
+    through the probes' ctypes path, of a kernel that does nothing
+    (`empty_kernel`); not counted in LAUNCHES."""
+    _EMPTY(device_index)

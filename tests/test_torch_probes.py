@@ -209,6 +209,37 @@ def test_wrappers_take_the_plain_route_for_cpu_tensors():
     assert all(v == 0 for v in probes.LAUNCHES.values())
 
 
+def test_roll_refusals_name_what_failed():
+    """`dynamic_roll` checks CUDA inputs in one expression; `_refuse_roll`
+    raises the error of the check that failed."""
+    x, s = torch.zeros(8, 512), torch.zeros(1, dtype=torch.int32)
+    for bad_x, bad_s, msg in ((torch.zeros(8, 512, 1), s, "2-D float32"),
+                              (x.double(), s, "2-D float32"),
+                              (x, torch.zeros(2, dtype=torch.int32), r"\(1,\) int32"),
+                              (x, s.long(), r"\(1,\) int32"),
+                              (x, s, "CUDA tensor")):
+        with pytest.raises(ValueError, match=msg):
+            probes._refuse_roll(bad_x, bad_s)
+    for bad_out, msg in ((torch.zeros(8, 511), "of x's shape"),
+                         (torch.zeros(8, 512, dtype=torch.float64), "of x's shape"),
+                         (torch.zeros(512, 8).t(), "must not overlap"),
+                         (x, "must not overlap")):
+        with pytest.raises(ValueError, match=msg):
+            probes._refuse_roll(x, s, bad_out, cuda=False)
+
+
+def test_roll_writes_into_the_callers_output():
+    """With ``out``, `dynamic_roll` returns that tensor holding the roll, and
+    refuses one that overlaps x."""
+    x = torch.randn(8, 512)
+    s = torch.tensor([-3], dtype=torch.int32)
+    out = torch.empty(8, 512)
+    assert probes.dynamic_roll(x, s, out=out) is out
+    assert torch.equal(out, torch.roll(x, -3, dims=1))
+    with pytest.raises(ValueError, match="must not overlap"):
+        probes.dynamic_roll(x, s, out=x)
+
+
 # --------------------------------------------------------------------------
 # on the card: each kernel against its plain version
 # --------------------------------------------------------------------------
@@ -226,7 +257,8 @@ def cuda():
 @pytest.mark.parametrize("transcend", [True, False])
 @pytest.mark.parametrize("data", ["probe", "dense"])
 def test_hot_loop_kernel_matches_plain(cuda, data, sub, transcend):
-    feats, counts = INPUTS[data](sub, T=16, seed=1)
+    # T 128: more units (16 a tile) than the persistent warps take at once
+    feats, counts = INPUTS[data](sub, T=128, seed=1)
     counts[:2] = (K + 100, -5)  # clamped to [0, K] by both
     ft, ct = torch.from_numpy(feats).to(cuda), torch.from_numpy(counts).to(cuda)
     before = probes.LAUNCHES["hot_loop" if transcend else "hot_loop_poly"]
@@ -244,3 +276,6 @@ def test_dynamic_roll_kernel_bit_equal(cuda, shift):
     x = torch.randn(8, 512, device=cuda)
     s = torch.tensor([shift], dtype=torch.int32, device=cuda)
     assert torch.equal(probes.dynamic_roll(x, s), torch.roll(x, shift, dims=1))
+    out = torch.empty_like(x)
+    assert probes.dynamic_roll(x, s, out=out) is out
+    assert torch.equal(out, torch.roll(x, shift, dims=1))
