@@ -99,6 +99,16 @@ def make_camera(
     )
 
 
+def opencv_to_opengl_w2c(w2c_opencv, device: str | torch.device = "cpu") -> torch.Tensor:
+    """OpenCV <-> OpenGL extrinsics flip: ``w2c @ diag(1, -1, -1, 1)``, the
+    y and z camera axes negated. The flip is float64, so the result is at
+    least float64, as numpy promotes it."""
+    w2c = torch.as_tensor(w2c_opencv, device=device)
+    w2c = w2c.to(torch.promote_types(w2c.dtype, torch.float64))
+    flip = torch.diag(torch.tensor([1.0, -1.0, -1.0, 1.0], dtype=w2c.dtype, device=device))
+    return w2c @ flip
+
+
 def stack_cameras(cams: Sequence[Camera]) -> Camera:
     """Stack single cameras of one image size along a leading camera axis."""
     first = cams[0]

@@ -31,6 +31,7 @@ P = TILE_H * TILE_W
 N_ACCUM = 4
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
+LOG2E = 1.4426950408889634
 SUBS = (64, 128)  # granule widths the kernel is built for
 MAX_T = 8192  # tiles a hot-loop launch (its sort's shared memory)
 
@@ -74,6 +75,15 @@ def _check_cuda(**tensors) -> torch.device:
 # --------------------------------------------------------------------------
 
 
+def _exp(x: torch.Tensor) -> torch.Tensor:
+    """e^x of a float32 tensor, float64 exp2 rounded to float32. Not
+    `torch.exp`: on the CPU that is MKL's vector math, whose code path MKL
+    picks at run time (``MKL_CBWR`` and ``MKL_ENABLE_INSTRUCTIONS`` change
+    its results), and in a fresh pytest worker its first call has returned
+    other values for part of a tile. ATen runs exp2 in its own kernel."""
+    return torch.exp2(x.double() * LOG2E).float()
+
+
 def composite_hot_loop_plain(feats: torch.Tensor, counts: torch.Tensor,
                              sub: int, transcend: bool):
     """The probe's `_kernel` in PyTorch: per tile, ``ceil(count / sub)``
@@ -83,7 +93,11 @@ def composite_hot_loop_plain(feats: torch.Tensor, counts: torch.Tensor,
 
     Within a granule the log T steps are summed by a cumulative sum, as the
     TPU's triangular-matmul prefix; the carried log T is added after it.
-    Counts outside [0, K] are clamped to it."""
+    Counts outside [0, K] are clamped to it.
+
+    Nothing here runs MKL, whose code path is picked at run time: the exps
+    are `_exp`, and the channel sums a product summed over the splats where
+    `torch.bmm` would call MKL's GEMM."""
     T, _, K = feats.shape
     dev = feats.device
     p = torch.arange(P, device=dev, dtype=torch.float32)
@@ -99,7 +113,7 @@ def composite_hot_loop_plain(feats: torch.Tensor, counts: torch.Tensor,
         dx = px - mx
         dy = py - my
         power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-        e = torch.exp(power) if transcend else 1.0 + power + 0.5 * power * power
+        e = _exp(power) if transcend else 1.0 + power + 0.5 * power * power
         alpha = torch.minimum(torch.tensor(ALPHA_MAX, device=dev), op * e)
         slot = j * sub + torch.arange(sub, device=dev)
         keep = (power <= 0) & (alpha >= ALPHA_MIN) & (slot[None, :, None] < counts[:, None, None])
@@ -107,9 +121,10 @@ def composite_hot_loop_plain(feats: torch.Tensor, counts: torch.Tensor,
         l = torch.log1p(-alpha) if transcend else -alpha - 0.5 * alpha * alpha
         cum = torch.cumsum(l, dim=1)
         ltb = logt + cum - l
-        w = alpha * (torch.exp(ltb) if transcend else 1.0 + ltb + 0.5 * ltb * ltb)
+        w = alpha * (_exp(ltb) if transcend else 1.0 + ltb + 0.5 * ltb * ltb)
         live = (j < granules)[:, None, None]
-        accum = torch.where(live, accum + torch.bmm(cf[:, 6:6 + N_ACCUM, :], w), accum)
+        rgbd = cf[:, 6:6 + N_ACCUM, :, None]
+        accum = torch.where(live, accum + (rgbd * w[:, None]).sum(2), accum)
         logt = torch.where(live, logt + cum[:, -1:, :], logt)
     return accum, logt
 

@@ -2,6 +2,7 @@
 `gsdx/render/projection.py`; differentiated by autograd).
 
   * camera transform  p_cam = w2c @ p_world, depth = z
+  * 3D covariance     Sigma = R S S^T R^T (`compute_cov3d`)
   * EWA 2D covariance cov2d = J W R S S^T R^T W^T J^T + 0.3 I, with the
     Jacobian's x/z, y/z clamped to 1.3x the field of view
   * conic = inverse(cov2d), radius = ceil(3 sqrt(lambda_max))
@@ -16,7 +17,7 @@ import dataclasses
 import torch
 
 from gsdx_torch.core.cameras import Camera
-from gsdx_torch.core.transforms import quat_normalize
+from gsdx_torch.core.transforms import quat_normalize, quat_to_rotmat
 
 # The reference rasterizer culls against a fixed 0.2 view-space z.
 NEAR_CULL_Z = 0.2
@@ -33,6 +34,14 @@ class ProjectedGaussians:
     depth: torch.Tensor
     radius: torch.Tensor
     mask: torch.Tensor
+
+
+def compute_cov3d(quats: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """(N, 3, 3) world covariance R S S^T R^T from quats (normalized here)
+    and scales, on their device. `project_gaussians` writes the same product
+    out per component."""
+    M = quat_to_rotmat(quats) * scales[:, None, :]  # R @ diag(s)
+    return M @ M.transpose(-1, -2)
 
 
 def project_gaussians(

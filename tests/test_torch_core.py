@@ -17,11 +17,13 @@ import torch
 from gsdx.core import cameras as jcam
 from gsdx.core import gaussians as jgs
 from gsdx.core import transforms as jtf
+from gsdx.render import projection as jproj
 from gsdx.track.optimizer import GroupAdam as JGroupAdam
 from gsdx_torch.core import cameras as tcam
 from gsdx_torch.core import gaussians as tgs
 from gsdx_torch.core import transforms as ttf
 from gsdx_torch.core.device import require_device
+from gsdx_torch.render import projection as tproj
 from gsdx_torch.track.optimizer import AdamState
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -71,6 +73,38 @@ def test_make_camera_and_stacking_match():
     stack = tcam.stack_cameras([tc, other])
     assert len(stack) == 2 and stack.w2c.shape == (2, 4, 4)
     assert float(stack[1].fx) == float(other.fx) and int(stack[1].cam_id) == 5
+
+
+def test_compute_cov3d_and_its_gradient_match(rng):
+    q = _quats(rng)
+    s = np.exp(rng.normal(-2.0, 1.0, size=(64, 3))).astype(np.float32)
+    w = rng.normal(size=(64, 3, 3)).astype(np.float32)
+    want = np.asarray(jproj.compute_cov3d(jnp.asarray(q), jnp.asarray(s)))
+    qt = torch.tensor(q, requires_grad=True)
+    st = torch.tensor(s, requires_grad=True)
+    got = tproj.compute_cov3d(qt, st)
+    # sums of three f32 products in another order: 1e-6 of each entry, and
+    # of the largest where an off-diagonal entry cancels
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-6, atol=1e-6 * scale)
+    gq, gs = jax.grad(lambda a, b: (jproj.compute_cov3d(a, b) * w).sum(), argnums=(0, 1))(
+        jnp.asarray(q), jnp.asarray(s))
+    (got * torch.as_tensor(w)).sum().backward()
+    for g_t, g_j in ((qt.grad, gq), (st.grad, gs)):
+        g_j = np.asarray(g_j)
+        np.testing.assert_allclose(g_t.numpy(), g_j, rtol=1e-5, atol=1e-6 * np.abs(g_j).max())
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_opencv_to_opengl_w2c_bit_equal(rng, dtype):
+    w2c = rng.normal(size=(4, 4)).astype(dtype)
+    w2c[3] = (0, 0, 0, 1)
+    want = jcam.opencv_to_opengl_w2c(w2c)
+    got = tcam.opencv_to_opengl_w2c(w2c, device="cpu").numpy()
+    assert got.dtype == want.dtype == np.float64
+    np.testing.assert_array_equal(got.view(np.uint64), want.view(np.uint64))
+    got = tcam.opencv_to_opengl_w2c(torch.as_tensor(w2c)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint64), want.view(np.uint64))
 
 
 def test_init_params_and_carry_across_round_trip(rng):

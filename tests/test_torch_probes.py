@@ -10,8 +10,13 @@ JAX is imported inside the tests that use it, so the card's tests run on a
 machine without JAX.
 """
 
+import contextlib
 import functools
 import importlib.util
+import json
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -132,6 +137,31 @@ def _close_to_largest(a, b, share):
 SHARE = {"probe": 0.02, "dense": 1e-3}
 
 
+@contextlib.contextmanager
+def _saved_on_failure(case, **arrays):
+    """Where ``GSDX_PARITY_DUMP`` names a directory (`tools/parity_loop.py`
+    sets it a run), a failed check saves the case's inputs and both sides'
+    outputs there, ``<case>-pid<pid>.npz`` (``*_j`` the Pallas kernel's,
+    ``*_t`` the port's), with what the process was: its xdist worker, torch's
+    thread count, the CPUs it may use and the inputs' addresses mod 64."""
+    try:
+        yield
+    except AssertionError:
+        out = os.environ.get("GSDX_PARITY_DUMP")
+        if out:
+            os.makedirs(out, exist_ok=True)
+            np.savez(os.path.join(out, f"{case}-pid{os.getpid()}.npz"),
+                     **{k: np.asarray(v) for k, v in arrays.items()})
+            info = {"worker": os.environ.get("PYTEST_XDIST_WORKER"),
+                    "torch_threads": torch.get_num_threads(),
+                    "cpus": len(os.sched_getaffinity(0)),
+                    "address_mod_64": {k: v.ctypes.data % 64 for k, v in arrays.items()
+                                       if isinstance(v, np.ndarray)}}
+            with open(os.path.join(out, f"{case}-pid{os.getpid()}.json"), "w") as f:
+                json.dump(info, f)
+        raise
+
+
 @pytest.mark.parametrize("sub", SUBS)
 @pytest.mark.parametrize("transcend", [True, False])
 @pytest.mark.parametrize("data", ["probe", "dense"])
@@ -142,11 +172,67 @@ def test_hot_loop_plain_matches_pallas_interpret(data, sub, transcend):
     acc_j, lt_j = _pallas_hot_loop(sub, transcend)(jnp.asarray(feats), jnp.asarray(counts))
     acc_t, lt_t = probes.composite_hot_loop_plain(torch.from_numpy(feats),
                                                   torch.from_numpy(counts), sub, transcend)
-    if data == "dense":
-        assert (np.asarray(acc_j) != 0).mean() > 0.99
-    _close_to_largest(acc_t.numpy(), acc_j, SHARE[data])
-    _close_to_largest(lt_t.numpy(), lt_j, SHARE[data])
+    with _saved_on_failure(f"hot_loop-{data}-{transcend}-{sub}", feats=feats, counts=counts,
+                           acc_j=acc_j, lt_j=lt_j, acc_t=acc_t, lt_t=lt_t):
+        if data == "dense":
+            assert (np.asarray(acc_j) != 0).mean() > 0.99
+        _close_to_largest(acc_t.numpy(), acc_j, SHARE[data])
+        _close_to_largest(lt_t.numpy(), lt_j, SHARE[data])
     assert np.isfinite(acc_t.numpy()).all() and np.abs(lt_t.numpy()).max() > 0
+
+
+_PLAIN_IN_A_CHILD = """
+import sys
+import numpy as np, torch
+from gsdx_torch.kernels import probes
+z = np.load(sys.argv[1])
+out = {}
+for data in ("probe", "dense"):
+    for transcend in (True, False):
+        acc, lt = probes.composite_hot_loop_plain(
+            torch.from_numpy(z[data + "_feats"]), torch.from_numpy(z[data + "_counts"]), 64, transcend)
+        out[f"{data}-{transcend}-acc"], out[f"{data}-{transcend}-lt"] = acc.numpy(), lt.numpy()
+np.savez(sys.argv[2], **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def plain_in_a_child(tmp_path_factory):
+    """Runs the plain version on `INPUTS` at sub 64 in a child process whose
+    environment has no MKL settings but ``setting`` ("NAME=value"), once a
+    setting; returns its outputs."""
+    tmp = tmp_path_factory.mktemp("mkl")
+    inputs = {}
+    for data in ("probe", "dense"):
+        inputs[data + "_feats"], inputs[data + "_counts"] = INPUTS[data](64)
+    np.savez(tmp / "in.npz", **inputs)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("MKL_")}
+    env["PYTHONPATH"] = os.pathsep.join([str(REPO), env.get("PYTHONPATH", "")])
+
+    @functools.lru_cache(maxsize=None)
+    def run(setting=None):
+        out = tmp / f"{setting or 'default'}.npz"
+        subprocess.run([sys.executable, "-c", _PLAIN_IN_A_CHILD, str(tmp / "in.npz"), str(out)],
+                       env=dict(env, **dict([setting.split("=")])) if setting else env,
+                       cwd=REPO, check=True, timeout=300)
+        return dict(np.load(out))
+
+    return run
+
+
+@pytest.mark.parametrize("mkl", ["MKL_CBWR=COMPATIBLE", "MKL_ENABLE_INSTRUCTIONS=AVX2"])
+def test_hot_loop_plain_is_the_same_on_every_mkl_code_path(plain_in_a_child, mkl):
+    """MKL picks its code path at run time, and on the CPU `torch.exp` and
+    `torch.bmm` run MKL. In a fresh pytest worker the plain version's first
+    call has come out other than usual in one tile (log T up to 0.0018
+    apart; once 29 of 540 accumulator entries over the parity check's 1e-5)
+    while the Pallas side stayed put. A child process forced onto another
+    MKL path by its environment must get the same bits as one left to MKL's
+    own choice."""
+    want, got = plain_in_a_child(), plain_in_a_child(mkl)
+    for k in want:
+        np.testing.assert_array_equal(got[k].view(np.uint32), want[k].view(np.uint32),
+                                      err_msg=f"{k} under {mkl}")
 
 
 def test_hot_loop_plain_clamps_counts():
