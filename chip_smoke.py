@@ -4,9 +4,9 @@
 
 Phases, each printing one JSON line:
   1. card + build: the card's name and power limit; nvcc builds the
-     compositor, GNN, GNN GEMM and probe kernel libraries from
+     compositor, GNN, GNN GEMM, probe and FPS kernel libraries from
      gsdx_torch/csrc, in parallel; each kernel's registers and spills (a
-     compositor, GEMM or message kernel that spills fails), and `cuobjdump
+     compositor, GEMM, message or FPS kernel that spills fails), and `cuobjdump
      -sass` must find HGMMA (wgmma) instructions in each of the GEMM's three
      instantiations (128 and 256 wide, 128 with residuals), and MUFU
      instructions in the transcendental variant of the hot-loop probe
@@ -58,12 +58,16 @@ Phases, each printing one JSON line:
      configs/rope.yaml at full width (nf 512, batch 16, n_future 5, max_nobj
      100, max_nR 500) from a seeded init: finite losses whose last 5 average
      below the first 5; batch assembly and train step ms (CUDA events),
-     samples/s.
+     samples/s. The FPS kernels' launch counters (preprocessing, then the
+     sampler's two FPS a batch) must be > 0 for this run, and the
+     downsampled trajectory (the kernel's picks) must equal the committed
+     one.
   7. predict: `collect_scene_data` on the committed 16-frame episode with
      the trained rope checkpoint, then 4 cameras x 16 frames re-rendered at
      1280x720 under inference mode; the compositor forward's launch counter
-     must be > 0 for this run. Kernel #1 against its plain version on camera
-     0's tile inputs of a frame of the push (n_accum 4); one rollout step on
+     and the FPS kernels' (the rollout's) must be > 0 for this run. Kernel
+     #1 against its plain version on camera 0's tile inputs of a frame of
+     the push (n_accum 4); one rollout step on
      the card against the same step on the CPU (1e-4 m), the whole
      trajectory's difference reported; rank-deficient Kabsch bones; the
      PSNR of every re-rendered frame against a render of the tracked frame,
@@ -80,8 +84,9 @@ Phases, each printing one JSON line:
      (densification at 500 and 600; gsdx's 10,000 cut in depth) ->
      `rollout_and_render` under a 12 cm push through the object's centre
      with the trained rope model -> every rollout frame at the 4 cameras.
-     The compositor's forward and backward launch counters must be > 0,
-     the last 20 iterations' PSNR above the first 20's; kernels #1 and #2
+     The compositor's forward and backward launch counters must be > 0, and
+     the FPS kernels' around the rollout, the last 20 iterations' PSNR
+     above the first 20's; kernels #1 and #2
      against their plain versions on camera 0's tile inputs of the fitted
      scene (n_accum 7, `online_kernel`); the first rollout step on the card
      within 1e-4 m of the CPU's; fit iterations/s, the projected
@@ -156,6 +161,19 @@ Phases, each printing one JSON line:
      sharded calls alone (set to 0 just before each, read just after,
      before its unsharded reference), must be > 0; the gloo ranks' times
      are labelled as two ranks sharing one card.
+ 17. fps (after probes): the FPS kernel (csrc/fps.cu) and its radius-
+     stopping form against their plain versions on the same CUDA tensors,
+     index for index and keep flag for keep flag, at the rope sampler's
+     shapes (16 x 1000 x 3 -> 100 from per-row starts, then 16 x 100 -> 100
+     with per-row radii), the cloth sampler's (batch 64, max_nobj 150), a
+     rollout step's (1000 -> 100, then the radius FPS), the rollout's proxy
+     (predict's Gaussians -> 1000), a row at the largest P (65,536: a
+     cluster of 8 blocks, read back from the launch), the 4-D action grid
+     at grid_size 0.02 (50,625 points, dense ties; `sample_action_seq_fps`
+     on the card equals it) and masked rows with more samples than valid
+     points; each shape's call ms, device ms, the plain version's ms, the
+     latency floor (the same launch with no distances) and the bytes and
+     operations bounds.
 
 Then each phase's seconds; the run fails if it wrote into the checkout.
 Before the result, every process the run left (multiprocessing's resource
@@ -455,6 +473,9 @@ def ptxas_report(logs) -> dict:
                 name = f"hot_loop_{'transcend' if probe.group(1) == '1' else 'poly'}_{probe.group(2)}"
             elif "roll_kernel" in m.group(1):
                 name = "dynamic_roll"
+            fps = re.search(r"fps_kernelILi(\d+)ELi(\d+)E", m.group(1))
+            if fps:  # one entry per (coordinates, points a thread)
+                name = f"fps_d{fps.group(1)}_ppt{fps.group(2)}"
             if name in ("fwd", "bwd"):  # one entry per n_accum instantiation
                 nacc = re.search(rf"{name}_kernelILi(\d+)E", m.group(1))
                 name = f"composite_{name}_nacc{nacc.group(1) if nacc else '?'}"
@@ -600,11 +621,12 @@ def phase_build() -> dict:
     three instantiations must hold wgmma (HGMMA) instructions in its SASS,
     the compositor, the GEMM and the message kernel must spill no
     register, and the hot-loop probe's SASS must hold MUFU instructions in
-    its transcendental variant only."""
-    from gsdx_torch.kernels import composite, gnn_forward, probes
+    its transcendental variant only. The FPS kernel's 20 instantiations (1-4
+    coordinates x 1-16 points a thread) must spill nothing."""
+    from gsdx_torch.kernels import composite, fps, gnn_forward, probes
 
     libs = (composite.LIBRARY, gnn_forward.LIBRARY, gnn_forward.GEMM_LIBRARY,
-            probes.LIBRARY)
+            probes.LIBRARY, fps.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         logs = list(pool.map(lambda lib: lib.build(), libs))
@@ -620,9 +642,11 @@ def phase_build() -> dict:
     if len(composite) != 4:
         raise AssertionError(f"ptxas reported {sorted(composite)}: expected the "
                              "forward and backward at n_accum 4 and 7")
-    # the compositor, every GEMM instantiation and the message kernel spill nothing
+    if len([k for k in ptxas if k.startswith("fps_")]) != 20:
+        raise AssertionError(f"ptxas reported {sorted(ptxas)}: expected 20 FPS instantiations")
+    # the compositor, every GEMM instantiation, the message kernel and FPS spill nothing
     checked = {k: v for k, v in ptxas.items()
-               if k.startswith(("composite_", "gnn_gemm", "gnn_message"))}
+               if k.startswith(("composite_", "gnn_gemm", "gnn_message", "fps_"))}
     if sorted(k for k in checked if k.startswith("gnn_gemm")) != [
             "gnn_gemm_bn128", "gnn_gemm_bn128_res", "gnn_gemm_bn256"] or "gnn_message" not in checked:
         raise AssertionError(f"ptxas reported {sorted(ptxas)}: expected the GEMM at "
@@ -638,7 +662,8 @@ def phase_build() -> dict:
             "kernels": ["composite_fwd", "composite_fwd_presort",
                         "composite_bwd", "composite_bwd_presort",
                         "gnn_linear", "gnn_gemm", "gnn_edge_first", "gnn_segments",
-                        "gnn_message", "hot_loop", "hot_loop_poly", "dynamic_roll"]}
+                        "gnn_message", "hot_loop", "hot_loop_poly", "dynamic_roll",
+                        "fps", "fps_radius"]}
 
 
 def check_forward(tf, counts, geo: dict, presort: bool, what: str):
@@ -948,6 +973,144 @@ def phase_probes(clk_mhz: float) -> tuple[dict, list[dict]]:
            "kernels": rows}
     emit(out)
     return out, rows
+
+
+def fps_case(shape: str, radius_mode: bool, points, n: int, start=0, radius=None,
+             valid=None) -> dict:
+    """The FPS kernel (plain or radius-stopping) against its plain version
+    on the same CUDA tensors, exactly (indices and keep); then its call's
+    median ms and device ms, the plain version's ms, the latency floor (the
+    same launch with no distances: `fps_latency_floor`) and the bounds of
+    the bytes it moves and of the operations this run's points need."""
+    from gsdx_torch.kernels import fps as F
+
+    kw = dict(start_idx=start, valid=valid)
+    if radius_mode:
+        def run():
+            return F.fps_rad_idx_batch(points, radius, n, **kw)
+
+        def plain():
+            return F.fps_rad_idx_batch_plain(points, radius, n, **kw)
+    else:
+        def run():
+            return F.farthest_point_sampling_batch(points, n, **kw), None
+
+        def plain():
+            return F.farthest_point_sampling_batch_plain(points, n, **kw), None
+    got = run()
+    launch = F.last_launch()
+    want = plain()
+    torch.cuda.synchronize()
+    name = "fps_radius" if radius_mode else "fps"
+    idx_diff = int((got[0] != want[0]).sum())
+    keep_diff = int((got[1] != want[1]).sum()) if radius_mode else 0
+    if idx_diff or keep_diff:
+        raise AssertionError(f"{name} kernel differs from its plain version at {shape}: "
+                             f"{idx_diff} indices, {keep_diff} keep flags")
+    B, P, D = points.shape
+    n_valid = B * P if valid is None else int(valid.expand(B, P).sum())
+    moved = (B * P * D * 4 + (valid.numel() if valid is not None else 0)
+             + (B * 8 if torch.is_tensor(start) else 0)
+             + (B * 4 if torch.is_tensor(radius) else 0) + B * n * (9 if radius_mode else 8))
+    bytes_ms = moved / PEAK_BYTES_S * 1e3
+    # a valid point a step: D subtractions, D FMAs (2 each), a min, a compare
+    ops_ms = max(n - 1, 0) * n_valid * (3 * D + 2) / PEAK_F32_FLOP_S * 1e3
+
+    def floor():
+        return F.fps_latency_floor(points, n)
+
+    row = {"name": name, "shape": shape, "B": B, "P": P, "D": D, "n": n,
+           "valid_points": n_valid, "start": "per row" if torch.is_tensor(start) else start,
+           "cluster": launch["cluster"], "threads": launch["threads"],
+           "points_a_thread": launch["points_a_thread"], "equal": True, "max_abs_err": 0.0,
+           "ms": cuda_ms(run, reps=20), "device_ms": kernel_device_ms(run, r"fps_kernel", calls=10),
+           "plain_ms": cuda_ms(plain, reps=2, warmup=1),
+           "floor_ms": cuda_ms(floor, reps=20),
+           "latency_floor_ms": kernel_device_ms(floor, r"fps_kernel", calls=10),
+           "bytes_bound_ms": bytes_ms, "operations_bound_ms": ops_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": None}
+    if radius_mode:
+        row["kept"] = int(got[1].sum())
+    emit(dict(row, phase="fps"))
+    return row
+
+
+FPS_GRID = ((-0.15, -0.15, -0.15, 5.0), (0.14, 0.14, 0.14, 5.29))  # 15 steps of 0.02 a side
+
+
+def phase_fps() -> tuple[dict, list[dict]]:
+    """The FPS kernel and its radius-stopping form against their plain
+    versions, exactly, at the shapes of every path that runs them: the rope
+    sampler (the committed trajectory's 16 frames x 1000 particles -> 100
+    from per-row starts, then 16 x 100 -> 100 with per-row radii), the cloth
+    sampler (batch 64, max_nobj 150), a rollout step (predict's 1000-point
+    proxy -> 100, then the radius FPS), the rollout's proxy (predict's real
+    Gaussians -> 1000) and a row at the kernel's largest P (65,536, a
+    cluster of 8 blocks), the planner's 4-D action grid at grid_size 0.02
+    (a box of 15 steps a side, 50,625 points, dense ties), and masked rows
+    with more samples than valid points. Returns (the row of the main path's
+    shapes by kernel, every row)."""
+    from gsdx_torch.apps.predict import tracked_gaussians
+    from gsdx_torch.core.pointcloud import iterative_statistical_outliers
+    from gsdx_torch.kernels import fps as F
+    from gsdx_torch.plan.actions import sample_action_seq_fps
+
+    rng = np.random.default_rng(0)
+    rows = []
+    # the rope sampler: one frame of the committed trajectory a row
+    traj = torch.as_tensor(np.load(TRAJ), device="cuda")
+    B = traj.shape[0]
+    start = torch.as_tensor(rng.integers(0, traj.shape[1], B), device="cuda")
+    radius = torch.as_tensor(rng.uniform(0.02, 0.04, B).astype(np.float32), device="cuda")
+    rows.append(fps_case("rope_sampler", False, traj, 100, start))
+    rows_b = torch.arange(B, device="cuda")[:, None]
+    down = traj[rows_b, F.farthest_point_sampling_batch(traj, 100, start)]
+    rows.append(fps_case("rope_sampler", True, down, 100, 0, radius))
+    # the cloth sampler: 64 rows of a crumpled 40 x 25 sheet
+    u, v = np.meshgrid(np.linspace(0, 0.3, 40), np.linspace(0, 0.2, 25))
+    sheet = np.stack([u.ravel(), v.ravel(), 0.02 * np.sin(8 * u.ravel())], -1)
+    cloth = torch.as_tensor((sheet[None] + rng.normal(0, 0.003, (64, 1000, 3)))
+                            .astype(np.float32), device="cuda")
+    start = torch.as_tensor(rng.integers(0, 1000, 64), device="cuda")
+    rows.append(fps_case("cloth_sampler", False, cloth, 150, start))
+    rows_b = torch.arange(64, device="cuda")[:, None]
+    down = cloth[rows_b, F.farthest_point_sampling_batch(cloth, 150, start)]
+    rows.append(fps_case("cloth_sampler", True, down, 150, 0,
+                         torch.full((64,), 0.03, device="cuda")))
+    # predict's rollout: the proxy of the tracked Gaussians, then a step's
+    xyz = torch.as_tensor(tracked_gaussians(os.path.join(PIPELINE, "ckpts/params.npz"), 0,
+                                            0.1)["means3D"], device="cuda")
+    gauss = xyz[torch.as_tensor(iterative_statistical_outliers(xyz, 50), device="cuda")]
+    rows.append(fps_case("rollout_proxy", False, gauss[None].contiguous(), 1000))
+    proxy = gauss[F.farthest_point_sampling(gauss, 1000)]
+    rows.append(fps_case("rollout_step", False, proxy[None], 100))
+    down = proxy[F.farthest_point_sampling(proxy, 100)]
+    rows.append(fps_case("rollout_step", True, down[None], 100, 0, 0.03))
+    big = torch.as_tensor(rng.normal(0, 0.1, (1, F.MAX_P, 3)).astype(np.float32), device="cuda")
+    rows.append(fps_case("largest_p", False, big, 1000))
+    if rows[-1]["cluster"] != 8:
+        raise AssertionError(f"the largest row ran on a cluster of {rows[-1]['cluster']}")
+    # the planner's action grid, built as `sample_action_seq_fps` builds it
+    axes = [np.arange(FPS_GRID[0][i], FPS_GRID[1][i], 0.02) for i in range(4)]
+    grid = torch.as_tensor(np.stack(np.meshgrid(*axes), -1).reshape(-1, 4).astype(np.float32),
+                           device="cuda")
+    rows.append(fps_case("action_grid", False, grid[None], 1000))
+    acts = sample_action_seq_fps(*FPS_GRID, 1000, grid_size=0.02, device="cuda")
+    if not (acts.is_cuda and torch.equal(
+            acts[:, 0], grid[F.farthest_point_sampling_batch_plain(grid[None], 1000)[0]])):
+        raise AssertionError("sample_action_seq_fps differs from the grid's plain FPS")
+    # masked rows, more samples than valid points
+    pts = torch.as_tensor(rng.normal(0, 0.1, (8, 1000, 3)).astype(np.float32), device="cuda")
+    valid = torch.as_tensor(rng.random((8, 1000)) < 0.05, device="cuda")
+    start = torch.as_tensor(rng.integers(0, 1000, 8), device="cuda")
+    rows.append(fps_case("masked_rows", False, pts, 100, start, valid=valid))
+    rows.append(fps_case("masked_rows", True, pts, 100, start, torch.full(
+        (8,), 0.05, device="cuda"), valid=valid))
+    shared = torch.as_tensor(rng.random(1000) < 0.03, device="cuda")
+    rows.append(fps_case("masked_shared", False, pts, 100, 3, valid=shared))
+    main = {r["name"]: r for r in rows if r["shape"] == "rope_sampler"}
+    return main, rows
 
 
 ROPE_CKPT = os.path.join(REPO, "benchmarks/out/generalization/checkpoints/latest.ckpt")
@@ -1762,8 +1925,11 @@ def phase_learn(card: str):
     from gsdx_torch.io.config import load_config
     from gsdx_torch.io.episodes import eef_world_positions, load_metadata
     from gsdx_torch.io.preprocess import preprocess_episode
+    from gsdx_torch.kernels import fps as F
 
     t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    F.reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
         data, out = episode_copy(tmp)
         prep = os.path.join(tmp, "prep")
@@ -1798,6 +1964,7 @@ def phase_learn(card: str):
         losses.append(float(loss))
         ms_batch.append(mb)
         ms_step.append(ms)
+    fps_launches = dict(F.LAUNCHES)
     B = train_cfg.batch_size
     row = {"phase": "learn", "card": card, "preprocess_s": prep_s,
            "frame_pairs_equal_committed": True, "pairs": int(len(rows)),
@@ -1810,8 +1977,14 @@ def phase_learn(card: str):
            "batch_ms": float(np.median(ms_batch)), "train_step_ms": float(np.median(ms_step)),
            "samples_per_s": B / (float(np.median(ms_batch)) + float(np.median(ms_step))) * 1e3,
            "first_step_ms": ms_batch[0] + ms_step[0], "losses": losses,
-           "seconds": time.perf_counter() - t_phase}
+           "fps_launches": fps_launches, "seconds": time.perf_counter() - t_phase}
     emit(row)
+    if not all(fps_launches.values()):
+        raise AssertionError(f"the FPS kernels did not launch in learn: {fps_launches}")
+    # the preprocessing's FPS picks (now the kernel's) equal the committed ones
+    if row["first_differing_fps_pick"] is not None or row["downsampled_max_abs_diff"] != 0:
+        raise AssertionError("the downsampled trajectory differs from the committed one from "
+                             f"FPS pick {row['first_differing_fps_pick']}")
     if not np.isfinite(losses).all():
         raise AssertionError("non-finite training loss")
     # The first Adam steps from a random init spike the loss, which inflates
@@ -1959,6 +2132,7 @@ def phase_predict(card: str, clk_mhz: float):
     from gsdx_torch.io.config import load_config
     from gsdx_torch.io.episodes import eef_world_positions, load_metadata
     from gsdx_torch.kernels import composite as C
+    from gsdx_torch.kernels import fps as F
     from gsdx_torch.kernels.fps import farthest_point_sampling
     from gsdx_torch.render.renderer import Renderer
     from gsdx_torch.rollout import skinning
@@ -1985,6 +2159,7 @@ def phase_predict(card: str, clk_mhz: float):
         calls, restore = record_calls(skinning, "bone_rotations")
         torch.cuda.synchronize()
         C.reset_launches()
+        F.reset_launches()
         t0 = time.perf_counter()
         try:
             scene, vis, _ = collect_scene_data(params_path, data, out, model, train_cfg,
@@ -1993,6 +2168,7 @@ def phase_predict(card: str, clk_mhz: float):
             restore()
         torch.cuda.synchronize()
         rollout_s = time.perf_counter() - t0
+        fps_launches = dict(F.LAUNCHES)
         t0 = time.perf_counter()
         with torch.inference_mode():
             ims = [[renderer.render(w2c[c], k[c], sd)[0] for sd in scene] for c in range(4)]
@@ -2001,6 +2177,8 @@ def phase_predict(card: str, clk_mhz: float):
         launches = dict(C.LAUNCHES)
         if launches["fwd"] <= 0:
             raise AssertionError(f"the compositor forward never launched in predict: {launches}")
+        if not all(fps_launches.values()):
+            raise AssertionError(f"the FPS kernels never launched in predict: {fps_launches}")
         low_traj, bones_traj = rank_deficient(calls)
 
         with torch.inference_mode():
@@ -2074,7 +2252,8 @@ def phase_predict(card: str, clk_mhz: float):
     n_frames = 4 * len(scene)
     row = {"phase": "predict", "card": card, "frames": n_frames, "cameras": 4,
            "height": meta["h"], "width": meta["w"], "gaussians": int(len(g0["means3D"])),
-           "launches": launches, "rollout_s": rollout_s, "render_s": render_s,
+           "launches": launches, "fps_launches": fps_launches, "rollout_s": rollout_s,
+           "render_s": render_s,
            "rollout_step_ms": step_ms, "render_frame_ms": frame_ms,
            "render_frames_per_s": n_frames / render_s,
            "frames_per_s": n_frames / (rollout_s + render_s),
@@ -2155,6 +2334,7 @@ def phase_online(card: str, clk_mhz: float):
     from gsdx_torch.apps.sim_real_app import rope_points
     from gsdx_torch.core.gaussians import init_tracking_variables
     from gsdx_torch.kernels import composite as C
+    from gsdx_torch.kernels import fps as F
     from gsdx_torch.realworld.env import FakeEnv, FakeEnvConfig
     from gsdx_torch.realworld.perception import PerceptionModule
     from gsdx_torch.rollout.dynamics_module import DynamicsModule
@@ -2228,10 +2408,12 @@ def phase_online(card: str, clk_mhz: float):
     step_in = first_step_inputs(gs.params, action, dm.cfg.n_his, dm.cfg.n_fps_proxy)
     torch.cuda.synchronize()
     C.reset_launches()
+    F.reset_launches()
     t0 = time.perf_counter()
     rendervars, _ = gs.rollout_and_render(dm, action)
     torch.cuda.synchronize()
     rollout_s = time.perf_counter() - t0
+    fps_launches = dict(F.LAUNCHES)
     t0 = time.perf_counter()
     frames = [[gs.render(rv, c, bg=(0, 0, 0))[0] for rv in rendervars] for c in range(4)]
     torch.cuda.synchronize()
@@ -2254,6 +2436,7 @@ def phase_online(card: str, clk_mhz: float):
            "fit_iters_per_s": ONLINE_ITERS / fit_s,
            "projected_10000_iter_fit_s": 10000 * fit_s / ONLINE_ITERS,
            "fit_launches": fit_launches, "render_launches": render_launches,
+           "rollout_fps_launches": fps_launches,
            "psnr_first20": float(psnr[:20].mean()), "psnr_last20": float(psnr[-20:].mean()),
            "num_pts": {str(i): int(num_pts[i]) for i in (0, 499, 500, 599, 600,
                                                           ONLINE_ITERS - 1)},
@@ -2271,6 +2454,8 @@ def phase_online(card: str, clk_mhz: float):
         raise AssertionError(f"the compositor did not launch in the online fit: {fit_launches}")
     if render_launches["fwd"] <= 0:
         raise AssertionError(f"the compositor did not launch in the renders: {render_launches}")
+    if not all(fps_launches.values()):
+        raise AssertionError(f"the FPS kernels did not launch in the rollout: {fps_launches}")
     if not (np.isfinite(psnr).all() and row["psnr_last20"] > row["psnr_first20"]):
         raise AssertionError("the online fit's PSNR did not rise")
     if not (np.isfinite(num_pts).all() and num_pts[-1] > 0):
@@ -3295,10 +3480,11 @@ def run() -> int:
     rows = timed("kernels", phase_kernels, info["max_sm_mhz"])
     gnn_rows = timed("gnn_kernels", phase_gnn_kernels)
     _, probe_rows = timed("probes", phase_probes, info["max_sm_mhz"])
+    fps_main, _ = timed("fps", phase_fps)
     timed("rasterize", phase_rasterize, card)
     slice_row = timed("slice", phase_slice, card)
     plan_row = timed("plan", phase_plan, card)
-    _, train_iteration = timed("learn", phase_learn, card)
+    learn_row, train_iteration = timed("learn", phase_learn, card)
     predict_row, predict_kernel, predict_step = timed("predict", phase_predict, card,
                                                       info["max_sm_mhz"])
     timed("plan_gd", phase_plan_gd, card)
@@ -3387,6 +3573,16 @@ def run() -> int:
             r, route="cuda", source="gsdx_torch/csrc/probes.cu",
             replaces=("benchmarks/probe_dynamic_roll.py:10" if roll
                       else "benchmarks/probe_transcendental.py:48")))
+    for name, line in (("fps", 25), ("fps_radius", 59)):  # a jit fori_loop there, not Pallas
+        r = fps_main[name]
+        table.append({
+            "name": name, "route": "cuda", "source": "gsdx_torch/csrc/fps.cu",
+            "replaces": f"gsdx/kernels/fps.py:{line}", "launches": learn_row["fps_launches"][name],
+            "launches_predict": predict_row["fps_launches"][name],
+            "launches_online": online_row["rollout_fps_launches"][name],
+            **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "device_ms", "latency_floor_ms", "B", "P", "D",
+                                 "n")}})
     emit({"phase": "processes", "stopped": stop_children()})
     print(info["nvidia_smi"], flush=True)
     emit({"kernels": table})

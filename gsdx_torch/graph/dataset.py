@@ -176,7 +176,8 @@ def build_batch(store: EpisodeStore, pair_rows: torch.Tensor, draws: SampleDraws
     P, n_tool = obj_kps.shape[2], tool_kps.shape[2]
 
     # FPS on the last history frame from each sample's start, then radius
-    # FPS of those with each sample's radius
+    # FPS of those with each sample's radius: one kernel launch each on the
+    # card, which reads the starts and radii there (no host read)
     anchor = obj_kps[:, n_his - 1]
     n1 = min(max_nobj, P)
     fps1 = farthest_point_sampling_batch(anchor, n1, start_idx=draws.start)

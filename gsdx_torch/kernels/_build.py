@@ -23,7 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-PTR, I32 = ctypes.c_void_p, ctypes.c_int
+PTR, I32, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def _nvcc() -> str:

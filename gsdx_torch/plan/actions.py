@@ -74,20 +74,23 @@ def sample_action_seq(generator: torch.Generator | None, act_seq, lower, upper,
 
 
 def sample_action_seq_fps(lower, upper, n_sample: int, n_look_ahead: int = 1,
-                          grid_size: float = 0.02):
+                          grid_size: float = 0.02, device="cuda"):
     """Grid + farthest-point action coverage: enumerate a regular grid over
-    the action box and FPS-select n_sample maximally spread actions."""
+    the action box and FPS-select n_sample maximally spread actions
+    (n_sample, n_look_ahead, 4) on ``device``, where the grid's FPS runs."""
     import numpy as np
 
+    from gsdx_torch.core.device import require_device
     from gsdx_torch.kernels.fps import farthest_point_sampling
 
+    device = require_device(device)
     # the grid in the limits' own precision (a tuple stays float64), as gsdx
     lower_np = lower.cpu().numpy() if torch.is_tensor(lower) else np.asarray(lower)
     upper_np = upper.cpu().numpy() if torch.is_tensor(upper) else np.asarray(upper)
     axes = [np.arange(lower_np[i], upper_np[i], grid_size)
             for i in range(len(lower_np))]
     grid = np.stack(np.meshgrid(*axes), axis=-1).reshape(-1, len(lower_np))
-    grid_t = torch.as_tensor(grid.astype(np.float32))
+    grid_t = torch.as_tensor(grid.astype(np.float32), device=device)
     idx = farthest_point_sampling(grid_t, n_sample, start_idx=0)
     return grid_t[idx][:, None].repeat(1, n_look_ahead, 1)
 

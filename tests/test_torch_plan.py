@@ -124,7 +124,8 @@ def test_fps_action_sampling_equals_gsdx():
                           (torch.as_tensor(lo32), torch.as_tensor(hi32)))):
         ref = jact.sample_action_seq_fps(*j_lim, n_sample=32, n_look_ahead=2,
                                          grid_size=0.2)
-        out = tact.sample_action_seq_fps(*t_lim, 32, n_look_ahead=2, grid_size=0.2)
+        out = tact.sample_action_seq_fps(*t_lim, 32, n_look_ahead=2, grid_size=0.2,
+                                         device="cpu")
         np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
 
 
