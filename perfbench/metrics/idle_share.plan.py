@@ -1,0 +1,10 @@
+"""Share of the wall time in which no kernel ran on the device, in a
+planning cell (MPPI): the union of the profiler's kernel intervals a unit of work
+over the wall seconds a unit of the untraced window the traced run makes
+first (`metrics_common.idle_share`)."""
+
+from perfbench.metrics_common import idle_share
+
+
+def read(trace):
+    return idle_share(trace)
