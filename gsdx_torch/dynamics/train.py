@@ -20,6 +20,7 @@ from gsdx_torch.dynamics.model import DynamicsPredictor, ModelConfig, flax_param
 from gsdx_torch.dynamics.utils import length_loss, mse_loss, rigid_loss
 from gsdx_torch.graph.dataset import GraphBatch, GraphSampler
 from gsdx_torch.io.checkpoint import adam_state_tree, save_checkpoint
+from gsdx_torch.utils.profiling import host_read, span
 
 
 class TrainConfig(NamedTuple):
@@ -77,16 +78,23 @@ def make_train_step(model: DynamicsPredictor, cfg: TrainConfig):
     """Returns (train_step, eval_step, optimizer). ``train_step(batch)``
     takes one Adam step (lr from the config, betas 0.9 / 0.999, eps 1e-8
     outside the square root: optax's `adam`) and returns the detached
-    (loss, parts); ``eval_step(batch)`` the loss without gradients."""
+    (loss, parts); ``eval_step(batch)`` the loss without gradients. A train
+    step is a span ``train.step`` timed on the device, holding
+    ``train.unroll``, ``train.backward`` and ``train.adam``."""
     optimizer = torch.optim.Adam(model.parameters(), lr=cfg.lr,
                                  betas=(0.9, 0.999), eps=1e-8)
+    device = next(model.parameters()).device
 
     def train_step(batch: GraphBatch):
-        optimizer.zero_grad(set_to_none=True)
-        loss, parts = unrolled_loss(model, batch, cfg)
-        loss.backward()
-        optimizer.step()
-        return loss.detach(), {k: torch.as_tensor(v).detach() for k, v in parts.items()}
+        with span("train.step", device):
+            with span("train.unroll"):
+                optimizer.zero_grad(set_to_none=True)
+                loss, parts = unrolled_loss(model, batch, cfg)
+            with span("train.backward"):
+                loss.backward()
+            with span("train.adam"):
+                optimizer.step()
+                return loss.detach(), {k: torch.as_tensor(v).detach() for k, v in parts.items()}
 
     def eval_step(batch: GraphBatch):
         with torch.no_grad():
@@ -125,11 +133,13 @@ def train_dynamics(train_sampler: GraphSampler, valid_sampler: Optional[GraphSam
         for i in range(cfg.n_iters_per_epoch_train):
             loss, _ = train_step(train_sampler.sample(g, cfg.batch_size))
             if progress and i % cfg.log_interval == 0:
-                losses.append(float(loss))
-        history["train"].append(float(np.mean(losses)) if losses else float(loss))
+                losses.append(host_read("train_loss", loss))
+        history["train"].append(float(np.mean(losses)) if losses
+                                else host_read("train_loss", loss))
 
         if valid_sampler is not None:
-            vlosses = [float(eval_step(valid_sampler.sample(g, cfg.batch_size))[0])
+            vlosses = [host_read("valid_loss",
+                                 eval_step(valid_sampler.sample(g, cfg.batch_size))[0])
                        for _ in range(cfg.n_iters_per_epoch_valid)]
             history["valid"].append(float(np.mean(vlosses)))
             if progress:

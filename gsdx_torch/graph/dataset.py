@@ -29,6 +29,7 @@ import torch
 from gsdx_torch.core.device import require_device
 from gsdx_torch.graph.edges import construct_edges_batch
 from gsdx_torch.kernels.fps import farthest_point_sampling_batch, fps_rad_idx_batch
+from gsdx_torch.utils.profiling import span
 
 
 class GraphDatasetConfig(NamedTuple):
@@ -246,8 +247,10 @@ class GraphSampler:
         return int(self.store.pair_list.shape[0])
 
     def sample(self, g: torch.Generator, batch_size: int) -> GraphBatch:
+        """A batch, in a span ``train.sample`` timed on the device."""
         dev = self.store.device
-        rows = torch.randint(0, self.num_pairs, (batch_size,), generator=g, device=dev)
-        draws = draw_samples(g, batch_size, self.store.particle_pos.shape[2], self.cfg,
-                             self.noise, dev)
-        return build_batch(self.store, self.store.pair_list[rows], draws, self.cfg)
+        with span("train.sample", dev):
+            rows = torch.randint(0, self.num_pairs, (batch_size,), generator=g, device=dev)
+            draws = draw_samples(g, batch_size, self.store.particle_pos.shape[2], self.cfg,
+                                 self.noise, dev)
+            return build_batch(self.store, self.store.pair_list[rows], draws, self.cfg)

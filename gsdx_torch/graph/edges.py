@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from gsdx_torch.utils.profiling import span
+
 _BIG = 1e10
 
 
@@ -35,8 +37,9 @@ def _adjacency(states, adj_thresh, mask, tool_mask, n_obj: int, topk: int,
     dis = torch.where(mask12, dis, big)
     tool12 = tool_mask[:, :, None] & tool_mask[:, None, :]
     dis = torch.where(tool12, big, dis)
-    thresh = torch.as_tensor(adj_thresh, dtype=states.dtype, device=states.device)
-    thresh = thresh.reshape(-1)[:, None, None] if thresh.ndim else thresh
+    # one radius stays a host scalar: a copy to the device would synchronise
+    thresh = torch.as_tensor(adj_thresh, dtype=states.dtype)
+    thresh = thresh.to(states.device).reshape(-1)[:, None, None] if thresh.ndim else thresh
     adj = dis < thresh * thresh
 
     k = min(topk, n_obj)
@@ -81,10 +84,11 @@ def construct_edge_indices_batch(states, adj_thresh, mask, tool_mask, n_obj: int
                                  topk: int = 10, max_nR: int = 500,
                                  connect_all: bool = False):
     """(recv_idx, send_idx) int32 (B, max_nR), -1 on unused slots.
-    ``adj_thresh`` is a scalar or (B,)."""
-    adj = _adjacency(states, adj_thresh, mask.bool(), tool_mask.bool(), n_obj,
-                     topk, connect_all)
-    return _pack(adj, max_nR)
+    ``adj_thresh`` is a scalar or (B,). A span ``graph.edges``."""
+    with span("graph.edges"):
+        adj = _adjacency(states, adj_thresh, mask.bool(), tool_mask.bool(), n_obj,
+                         topk, connect_all)
+        return _pack(adj, max_nR)
 
 
 def construct_edges_batch(states, adj_thresh, mask, tool_mask, n_obj: int,

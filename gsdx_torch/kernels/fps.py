@@ -14,6 +14,8 @@ runs a fixed ``max_samples`` trips and returns a keep mask.
     argument. A CUDA tensor never falls back to the plain loop.
   * `farthest_point_sampling_batch_plain` / `fps_rad_idx_batch_plain`: the
     plain PyTorch version, a loop of n masked distance updates.
+  * Each batched call is a span ``kernels.fps`` (`utils/profiling.py`),
+    timed on the device.
   * `LAUNCHES` counts the kernel launches; `last_launch` reads back the
     cluster size, blocks, threads and points a thread of the last one;
     `fps_latency_floor` launches the kernel at a shape's launch shape and
@@ -34,6 +36,7 @@ import operator
 import torch
 
 from gsdx_torch.kernels._build import F32, I32, PTR, CudaLibrary, Launcher
+from gsdx_torch.utils.profiling import span
 
 _INF = 1e10
 MAX_P = 65536  # points a row: 8 blocks of 512 threads x 16 points
@@ -274,9 +277,10 @@ def farthest_point_sampling_batch(points: torch.Tensor, n_samples: int,
     in [0, P) for all). ``valid`` (P,) or (B, P) bool masks points out. With
     fewer valid points than n_samples indices repeat."""
     _check(points, n_samples, start_idx, valid)
-    if points.is_cuda:
-        return _launch(points, n_samples, start_idx, valid)[0]
-    return farthest_point_sampling_batch_plain(points, n_samples, start_idx, valid)
+    with span("kernels.fps", points.device):
+        if points.is_cuda:
+            return _launch(points, n_samples, start_idx, valid)[0]
+        return farthest_point_sampling_batch_plain(points, n_samples, start_idx, valid)
 
 
 def fps_rad_idx_batch(points: torch.Tensor, radius, max_samples: int,
@@ -287,9 +291,10 @@ def fps_rad_idx_batch(points: torch.Tensor, radius, max_samples: int,
     samples taken before the farthest remaining point came within
     ``radius`` (a float, or a float32 (B,) tensor read on the device)."""
     _check(points, max_samples, start_idx, valid, radius, radius_mode=True)
-    if points.is_cuda:
-        return _launch(points, max_samples, start_idx, valid, radius, radius_mode=True)
-    return fps_rad_idx_batch_plain(points, radius, max_samples, start_idx, valid)
+    with span("kernels.fps", points.device):
+        if points.is_cuda:
+            return _launch(points, max_samples, start_idx, valid, radius, radius_mode=True)
+        return fps_rad_idx_batch_plain(points, radius, max_samples, start_idx, valid)
 
 
 def _one_row(points, *per_row):

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from gsdx_torch.kernels._build import I32, PTR, CudaLibrary
+from gsdx_torch.utils.profiling import host_read, span
 
 # Node slots the kernels are padded to (objects + tool), as in gsdx.
 N_PAD_CHOICES = (128, 256)
@@ -512,8 +513,8 @@ def _check_indices(recv_idx: torch.Tensor, send_idx: torch.Tensor, n_pad: int) -
         raise ValueError(f"recv_idx is on {recv_idx.device}, send_idx on {send_idx.device}")
     if recv_idx.numel() == 0:
         return
-    lo_r, hi_r, lo_s, hi_s = torch.stack([*torch.aminmax(recv_idx),
-                                          *torch.aminmax(send_idx)]).tolist()
+    lo_r, hi_r, lo_s, hi_s = host_read("gnn_indices", torch.stack([*torch.aminmax(recv_idx),
+                                                                   *torch.aminmax(send_idx)]))
     if min(lo_r, lo_s) < -1 or max(hi_r, hi_s) >= n_pad:
         raise ValueError(f"edge indices must lie in [-1, {n_pad}), got recv in "
                          f"[{lo_r}, {hi_r}], send in [{lo_s}, {hi_s}]")
@@ -525,12 +526,15 @@ def fused_gnn_forward(packed: PackedGNN, attrs, action, state_t, g, recv_idx,
     tensors launch the kernels of `csrc/gnn_forward.cu` and `csrc/gnn_gemm.cu`
     (bf16 weights and product operands, f32 sums); CPU tensors run
     `gnn_forward_plain(operands="bf16")`, their plain version. An edge index
-    outside [-1, n_pad) raises on either."""
-    _check_indices(recv_idx, send_idx, attrs.shape[1])
+    outside [-1, n_pad) raises on either. Spans: ``gnn.check`` (the index
+    check and its host read), ``gnn.launch`` (the launches)."""
+    with span("gnn.check"):
+        _check_indices(recv_idx, send_idx, attrs.shape[1])
     if not attrs.is_cuda:
         return gnn_forward_plain(packed, attrs, action, state_t, g, recv_idx,
                                  send_idx, pstep, operands="bf16")
-    return _launch_forward(packed, attrs, action, state_t, g, recv_idx, send_idx, pstep)
+    with span("gnn.launch"):
+        return _launch_forward(packed, attrs, action, state_t, g, recv_idx, send_idx, pstep)
 
 
 def _launch_forward(packed: PackedGNN, attrs, action, state_t, g, recv_idx,

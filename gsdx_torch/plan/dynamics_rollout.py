@@ -23,6 +23,12 @@ The GNN of a push step is, by `RolloutSpec.fused`:
   * "off": the `DynamicsPredictor` module.
 ``needs_grad=True`` (the GD planner) always takes the module: the kernels
 have no backward.
+
+The push loop's host work lies in spans (`utils/profiling.py`):
+``rollout.order`` (decode, pack, sort), a ``rollout.chunk`` a chunk holding
+``rollout.head``, the trip count's host read and a ``rollout.step`` a push
+(``graph.edges``, ``rollout.pad``, ``rollout.gnn``, ``rollout.advance``),
+then ``rollout.gather``.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from gsdx_torch.graph.edges import construct_edge_indices_batch, construct_edges
 from gsdx_torch.kernels.gnn_forward import (fused_gnn_forward, gnn_forward_plain,
                                             pack_gnn_params)
 from gsdx_torch.plan.actions import decode_action
+from gsdx_torch.utils.profiling import host_read, span
 
 
 class RolloutSpec(NamedTuple):
@@ -110,47 +117,32 @@ def make_batched_rollout(model: DynamicsPredictor, spec: RolloutSpec):
 
     def roll_block(state, decoded, repeats, packed, needs_grad):
         """Per-sample independent rollout of one (Bc, L, 4) action block."""
-        Bc, L = decoded.shape[:2]
-        n_obj = state.shape[0]
-        N = n_obj + 1  # a single tool particle
-        dev = state.device
-        state_mask = torch.ones((Bc, N), dtype=torch.bool, device=dev)
-        tool_mask = torch.zeros((Bc, N), dtype=torch.bool, device=dev)
-        tool_mask[:, n_obj:] = True
-        edge_kw = dict(n_obj=n_obj, topk=spec.topk, max_nR=spec.max_nR,
-                       connect_all=spec.connect_all)
-        if packed is None:
-            attrs = torch.zeros((Bc, N, 2), device=dev)
-            attrs[:, :n_obj, 0] = 1.0
-            attrs[:, n_obj:, 1] = 1.0
-            p_instance = torch.ones((Bc, n_obj, 1), device=dev)
-        else:
-            e_pad = -(-spec.max_nR // 8) * 8
-            n_pad = 128 if N <= 128 else 256
-            attrs_pad = torch.zeros((Bc, n_pad, 2), device=dev)
-            attrs_pad[:, :n_obj, 0] = 1.0
-            attrs_pad[:, n_obj:N, 1] = 1.0
-            g_pad = torch.zeros((Bc, n_pad, 1), device=dev)
-            g_pad[:, :n_obj, 0] = 1.0
-            gnn = gnn_forward_plain if spec.fused == "twin" else fused_gnn_forward
-
-        obj_kp = state[None, None].expand(Bc, spec.n_his, n_obj, 3)
-        preds = []
-        for li in range(L):
-            if li > 0:
-                obj_kp = preds[li - 1][:, None].expand(Bc, spec.n_his, n_obj, 3)
-            # the pusher spawns at the action's (x, y), at the object's
-            # lowest z
-            z = obj_kp[:, -1, :, 2].min(1).values
-            eef = torch.stack([decoded[:, li, 0], decoded[:, li, 1], z], -1)[:, None]
-            delta = torch.stack([decoded[:, li, 2] - decoded[:, li, 0],
-                                 decoded[:, li, 3] - decoded[:, li, 1],
-                                 torch.zeros_like(z)], -1)[:, None]  # (Bc, 1, 3)
-            states = torch.cat([obj_kp, eef[:, None].expand(Bc, spec.n_his, 1, 3)], 2)
-            action = torch.cat([delta.new_zeros((Bc, n_obj, 3)), delta], 1)
-            if packed is not None:
-                action_pad = torch.zeros((Bc, n_pad, 3), device=dev)
-                action_pad[:, n_obj:N] = delta
+        with span("rollout.chunk"):
+            with span("rollout.head"):
+                Bc, L = decoded.shape[:2]
+                n_obj = state.shape[0]
+                N = n_obj + 1  # a single tool particle
+                dev = state.device
+                state_mask = torch.ones((Bc, N), dtype=torch.bool, device=dev)
+                tool_mask = torch.zeros((Bc, N), dtype=torch.bool, device=dev)
+                tool_mask[:, n_obj:] = True
+                edge_kw = dict(n_obj=n_obj, topk=spec.topk, max_nR=spec.max_nR,
+                               connect_all=spec.connect_all)
+                if packed is None:
+                    attrs = torch.zeros((Bc, N, 2), device=dev)
+                    attrs[:, :n_obj, 0] = 1.0
+                    attrs[:, n_obj:, 1] = 1.0
+                    p_instance = torch.ones((Bc, n_obj, 1), device=dev)
+                else:
+                    e_pad = -(-spec.max_nR // 8) * 8
+                    n_pad = 128 if N <= 128 else 256
+                    attrs_pad = torch.zeros((Bc, n_pad, 2), device=dev)
+                    attrs_pad[:, :n_obj, 0] = 1.0
+                    attrs_pad[:, n_obj:N, 1] = 1.0
+                    g_pad = torch.zeros((Bc, n_pad, 1), device=dev)
+                    g_pad[:, :n_obj, 0] = 1.0
+                    gnn = gnn_forward_plain if spec.fused == "twin" else fused_gnn_forward
+                obj_kp = state[None, None].expand(Bc, spec.n_his, n_obj, 3)
 
             def step(states):
                 if packed is None:
@@ -160,57 +152,83 @@ def make_batched_rollout(model: DynamicsPredictor, spec: RolloutSpec):
                     return pred
                 recv, send = construct_edge_indices_batch(
                     states[:, -1], spec.adj_thresh, state_mask, tool_mask, **edge_kw)
-                if e_pad > spec.max_nR:
-                    fill = torch.full((Bc, e_pad - spec.max_nR), -1,
-                                      dtype=torch.int32, device=dev)
-                    recv, send = torch.cat([recv, fill], 1), torch.cat([send, fill], 1)
-                st_pad = torch.zeros((Bc, n_pad, spec.n_his * 3), device=dev)
-                st_pad[:, :N] = states.transpose(1, 2).reshape(Bc, N, spec.n_his * 3)
-                motion = gnn(packed, attrs_pad, action_pad, st_pad, g_pad,
-                             recv.contiguous(), send.contiguous(),
-                             pstep=cfg.pstep)[:, :n_obj, :3]
-                return states[:, -1, :n_obj] + torch.clamp(
-                    motion, -cfg.motion_clamp, cfg.motion_clamp)
+                with span("rollout.pad"):
+                    if e_pad > spec.max_nR:
+                        fill = torch.full((Bc, e_pad - spec.max_nR), -1,
+                                          dtype=torch.int32, device=dev)
+                        recv, send = torch.cat([recv, fill], 1), torch.cat([send, fill], 1)
+                    st_pad = torch.zeros((Bc, n_pad, spec.n_his * 3), device=dev)
+                    st_pad[:, :N] = states.transpose(1, 2).reshape(Bc, N, spec.n_his * 3)
+                    recv, send = recv.contiguous(), send.contiguous()
+                with span("rollout.gnn"):
+                    motion = gnn(packed, attrs_pad, action_pad, st_pad, g_pad, recv, send,
+                                 pstep=cfg.pstep)[:, :n_obj, :3]
+                    return states[:, -1, :n_obj] + torch.clamp(
+                        motion, -cfg.motion_clamp, cfg.motion_clamp)
 
-            if needs_grad:
-                # a fixed trip count: iterations past a sample's own repeat
-                # never match its freeze mask, so the result is the same
-                upper = spec.max_repeat + 1
-            else:
-                upper = min(int(repeats[:, li].max()), spec.max_repeat) + 1
-            pred_li = torch.zeros((Bc, n_obj, 3), device=dev)
-            for ai in range(1, upper):
-                pred = step(states)
-                # freeze each sample's output at its own repeat count
-                freeze = (repeats[:, li] == ai)[:, None, None]
-                pred_li = torch.where(freeze, pred, pred_li)
-                z_cur = pred[:, :, 2].min(1).values
-                eef_cur = states[:, -1, n_obj:] + action[:, n_obj:]
-                eef_cur = torch.cat([eef_cur[:, :, :2], z_cur[:, None, None]], 2)
-                states_cur = torch.cat([pred, eef_cur], 1)
-                states = torch.cat([states[:, 1:], states_cur[:, None]], 1)
-            preds.append(pred_li)
-        return torch.stack(preds, 1)
+            preds = []
+            for li in range(L):
+                with span("rollout.head"):
+                    if li > 0:
+                        obj_kp = preds[li - 1][:, None].expand(Bc, spec.n_his, n_obj, 3)
+                    # the pusher spawns at the action's (x, y), at the object's
+                    # lowest z
+                    z = obj_kp[:, -1, :, 2].min(1).values
+                    eef = torch.stack([decoded[:, li, 0], decoded[:, li, 1], z], -1)[:, None]
+                    delta = torch.stack([decoded[:, li, 2] - decoded[:, li, 0],
+                                         decoded[:, li, 3] - decoded[:, li, 1],
+                                         torch.zeros_like(z)], -1)[:, None]  # (Bc, 1, 3)
+                    states = torch.cat([obj_kp, eef[:, None].expand(Bc, spec.n_his, 1, 3)], 2)
+                    action = torch.cat([delta.new_zeros((Bc, n_obj, 3)), delta], 1)
+                    if packed is not None:
+                        action_pad = torch.zeros((Bc, n_pad, 3), device=dev)
+                        action_pad[:, n_obj:N] = delta
+                    pred_li = torch.zeros((Bc, n_obj, 3), device=dev)
+                    repeats_li = repeats[:, li]
+                if needs_grad:
+                    # a fixed trip count: iterations past a sample's own repeat
+                    # never match its freeze mask, so the result is the same
+                    upper = spec.max_repeat + 1
+                else:
+                    upper = min(host_read("trip_count", repeats_li.max()), spec.max_repeat) + 1
+                for ai in range(1, upper):
+                    with span("rollout.step"):
+                        pred = step(states)
+                        with span("rollout.advance"):
+                            # freeze each sample's output at its own repeat count
+                            freeze = (repeats_li == ai)[:, None, None]
+                            pred_li = torch.where(freeze, pred, pred_li)
+                            z_cur = pred[:, :, 2].min(1).values
+                            eef_cur = states[:, -1, n_obj:] + action[:, n_obj:]
+                            eef_cur = torch.cat([eef_cur[:, :, :2], z_cur[:, None, None]], 2)
+                            states_cur = torch.cat([pred, eef_cur], 1)
+                            states = torch.cat([states[:, 1:], states_cur[:, None]], 1)
+                preds.append(pred_li)
+            return torch.stack(preds, 1)
 
     def rollout(state, act_seqs, *, needs_grad: bool = False):
-        B = act_seqs.shape[0]
-        decoded, repeats = decode_action(act_seqs, spec.push_length)
-        packed = None
-        if fused_route(spec, cfg, state.device, needs_grad):
-            packed = packed_for(state.device)
-        nc = spec.sort_chunks
-        if nc > 1 and B % nc == 0 and B >= 2 * nc:
-            # total repeats over the look-ahead decide a sample's cost
-            order = torch.argsort(-repeats.sum(1), stable=True)
-            inv = torch.argsort(order)
-            dec_s, rep_s = decoded[order], repeats[order]
-            chunk = B // nc
-            preds = [roll_block(state, dec_s[c * chunk:(c + 1) * chunk],
-                                rep_s[c * chunk:(c + 1) * chunk], packed, needs_grad)
-                     for c in range(nc)]
-            pred_seq = torch.cat(preds, 0)[inv]
-        else:
+        with span("rollout.order"):
+            B = act_seqs.shape[0]
+            decoded, repeats = decode_action(act_seqs, spec.push_length)
+            packed = None
+            if fused_route(spec, cfg, state.device, needs_grad):
+                packed = packed_for(state.device)
+            nc = spec.sort_chunks
+            sort = nc > 1 and B % nc == 0 and B >= 2 * nc
+            if sort:
+                # total repeats over the look-ahead decide a sample's cost
+                order = torch.argsort(-repeats.sum(1), stable=True)
+                inv = torch.argsort(order)
+                dec_s, rep_s = decoded[order], repeats[order]
+                chunk = B // nc
+        if not sort:
             pred_seq = roll_block(state, decoded, repeats, packed, needs_grad)
+            return {"state_seqs": pred_seq, "action_seqs": decoded}
+        preds = [roll_block(state, dec_s[c * chunk:(c + 1) * chunk],
+                            rep_s[c * chunk:(c + 1) * chunk], packed, needs_grad)
+                 for c in range(nc)]
+        with span("rollout.gather"):
+            pred_seq = torch.cat(preds, 0)[inv]
         return {"state_seqs": pred_seq, "action_seqs": decoded}
 
     return rollout

@@ -18,6 +18,7 @@ import torch
 
 from gsdx_torch.core.device import require_device
 from gsdx_torch.plan.actions import optimize_action_mppi, sample_action_seq
+from gsdx_torch.utils.profiling import host_read, span
 
 
 class MPPIConfig(NamedTuple):
@@ -81,27 +82,32 @@ class Planner:
         """One update: returns (new mean act_seq, best_act, best_reward,
         rewards of this iteration's samples)."""
         cfg = self.cfg
-        act_seqs = self._sample(generator, act_seq, iter_index, draws)
-        if self.mesh is None:
-            out = self._rollout(state_cur, act_seqs)
-            rewards = self._evaluate(out["state_seqs"], out["action_seqs"],
-                                     state_cur)["reward_seqs"]
-        else:
-            from gsdx_torch.dist.mesh import batch_sharding, gather_rows, replicated
+        with span("plan.iteration"):
+            with span("plan.sample"):
+                act_seqs = self._sample(generator, act_seq, iter_index, draws)
+                if self.mesh is not None:
+                    from gsdx_torch.dist.mesh import batch_sharding, gather_rows, replicated
 
-            act_seqs = replicated(act_seqs.contiguous(), self.mesh)
-            mine = batch_sharding(act_seqs, self.mesh, self.mesh_axis)
-            out = self._rollout(state_cur, mine)
-            rewards = gather_rows(self._evaluate(out["state_seqs"], out["action_seqs"],
-                                                 state_cur)["reward_seqs"],
-                                  self.mesh, self.mesh_axis)
-        new_act_seq = optimize_action_mppi(act_seqs, rewards, self.lower, self.upper,
-                                           reward_weight=cfg.reward_weight,
-                                           push_length=cfg.push_length)
-        idx = torch.argmax(rewards)
-        better = rewards[idx] > best_reward
-        best_act = torch.where(better, act_seqs[idx], best_act)
-        best_reward = torch.where(better, rewards[idx], best_reward)
+                    act_seqs = replicated(act_seqs.contiguous(), self.mesh)
+            with span("plan.rollout"):
+                mine = (act_seqs if self.mesh is None else
+                        batch_sharding(act_seqs, self.mesh, self.mesh_axis))
+                out = self._rollout(state_cur, mine)
+            with span("plan.cost"):
+                rewards = self._evaluate(out["state_seqs"], out["action_seqs"],
+                                         state_cur)["reward_seqs"]
+                if self.mesh is not None:
+                    rewards = gather_rows(rewards, self.mesh, self.mesh_axis)
+            with span("plan.update"):
+                new_act_seq = optimize_action_mppi(act_seqs, rewards, self.lower, self.upper,
+                                                   reward_weight=cfg.reward_weight,
+                                                   push_length=cfg.push_length)
+                # a one-element index: indexing by a 0-d tensor reads it on the host
+                idx = torch.argmax(rewards).reshape(1)
+                top = rewards[idx][0]
+                better = top > best_reward
+                best_act = torch.where(better, act_seqs[idx][0], best_act)
+                best_reward = torch.where(better, top, best_reward)
         return new_act_seq, best_act, best_reward, rewards
 
     def trajectory_optimization(self, generator: torch.Generator | None,
@@ -115,7 +121,8 @@ class Planner:
             return self._trajectory_optimization_gd(generator, state_cur, act_seq,
                                                     draws)
         best_act = act_seq
-        best_reward = torch.tensor(-math.inf, device=act_seq.device)
+        # filled on the device: a copy from the host would synchronise
+        best_reward = torch.full((), -math.inf, device=act_seq.device)
         iter_best = []
         for i in range(self.cfg.n_update_iter):
             act_seq, best_act, best_reward, rewards = self.mppi_iteration(
@@ -165,5 +172,5 @@ class Planner:
         """Best of ``n_chunks`` independent optimizations."""
         results = [self.trajectory_optimization(generator, state_cur, init_act_seq)
                    for _ in range(n_chunks)]
-        rewards = [float(r["best_reward"]) for r in results]
+        rewards = host_read("best_chunk", torch.stack([r["best_reward"] for r in results]))
         return results[max(range(n_chunks), key=rewards.__getitem__)]

@@ -1,14 +1,11 @@
 """The port's small IO and host utilities against gsdx's on the CPU: PLY
 both ways, the .splat export byte for byte, the PNG decoder against PIL
 (files PIL writes, each of the five scanline filters, the port's own
-writer, refusals), the overlay drawings pixel for pixel, seeding and the
-profiling hooks."""
+writer, refusals), the overlay drawings pixel for pixel and seeding."""
 
-import os
 import random
 import struct
 import sys
-import time
 import zlib
 
 import numpy as np
@@ -25,7 +22,6 @@ from gsdx_torch.io.episodes import save_to_splat
 from gsdx_torch.io.ply import load_ply, save_ply
 from gsdx_torch.io.video import decode_png, encode_png, read_png, write_image
 from gsdx_torch.utils import viz as tviz
-from gsdx_torch.utils.profiling import Timer, trace_to
 from gsdx_torch.utils.seeding import set_seed
 
 # ---------------------------------------------------------------- PLY, splat
@@ -264,14 +260,3 @@ def test_set_seed_seeds_as_gsdx_and_returns_a_generator():
     j_set_seed(7)
     assert a == (random.random(), np.random.rand())
     assert isinstance(g, torch.Generator) and g.initial_seed() == 7
-
-
-def test_timer_and_trace(tmp_path):
-    t = Timer()
-    for _ in range(2):
-        with t("a"):
-            time.sleep(0.01)
-    assert t.counts["a"] == 2 and t.totals["a"] >= 0.02 and "a" in t.summary()
-    with trace_to(str(tmp_path / "trace")):
-        torch.ones(8).sum()
-    assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
