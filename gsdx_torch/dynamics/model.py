@@ -1,11 +1,16 @@
 """Graph neural dynamics model (counterpart of `gsdx/dynamics/model.py`).
 
-An interaction network over particles: dense one-hot relation matrices
-Rr, Rs (B, n_rel, N) select receivers and senders by batched products, and
-the message passing is the hoisted, node-side form of gsdx's
+An interaction network over particles. The relations come in either of
+two forms, told apart by their dtype: dense one-hot float rows Rr, Rs
+(B, n_rel, N), which select receivers and senders by batched products (the
+rollout module, the planner's module route, gsdx's own form), or integer
+index lists (B, n_rel) with -1 on empty slots, which select by a gather
+and aggregate by a receiver segment sum, a sparse CSR product (training,
+whose batches hold the lists). `FORWARDS` counts the forwards of each
+form. The message passing is the hoisted, node-side form of gsdx's
 `DynamicsPredictor` (`model.py:173-190`): the loop-invariant encoder
-projections leave the pstep loop, and the 512x512 projections of the effect
-run on the N node rows before the one-hot selections.
+projections leave the pstep loop, and the 512x512 projections of the
+effect run on the N node rows before the selections.
 
 Weights carry over from the JAX package's flax param tree with
 `params_from_flax` (a flax `Dense.kernel` is (in, out) and becomes the
@@ -40,6 +45,108 @@ class ModelConfig(NamedTuple):
     motion_dim: int = 0  # 0 or 3 (cloth/sloth use 3)
     n_his: int = 3
     motion_clamp: float = 100.0
+
+
+# Forwards of `DynamicsPredictor`, counted by the form of their relations.
+FORWARDS = {"indexed": 0, "one_hot": 0}
+
+
+def reset_forwards() -> None:
+    for k in FORWARDS:
+        FORWARDS[k] = 0
+
+
+class _OneHot:
+    """Relations as one-hot rows (B, n_rel, N), over their first ``n``
+    columns: batched products."""
+
+    def __init__(self, R, n: int):
+        self.R, self.n = R[:, :, :n], n
+
+    def select(self, x):
+        """(B, n, C) node rows -> (B, n_rel, C) rows of each relation's end."""
+        return self.R @ x
+
+    def aggregate(self, m):
+        """(B, n_rel, C) relation rows -> (B, n, C) sums over each node's
+        relations."""
+        return self.R.transpose(1, 2) @ m
+
+
+class _Indexed:
+    """Relations as node indices (B, n_rel), -1 on empty slots, over the
+    flattened (B * n + 1, C) node rows, whose last row stands for every
+    empty slot and every index of ``n`` or more (a column the caller leaves
+    out). A selection gathers rows, the last one zero; an aggregation sums
+    each node's slots by a sparse product with the (B * n + 1, B * n_rel)
+    CSR matrix of the slots sorted by node, whose last row takes the empty
+    slots and is dropped. Each is the other's adjoint, so the one's
+    backward is the other: no atomics, and a node's slots add in slot
+    order."""
+
+    def __init__(self, idx, n: int):
+        B, E = idx.shape
+        base = torch.arange(B, device=idx.device)[:, None] * n
+        keep = (idx >= 0) & (idx < n)
+        self.flat = torch.where(keep, idx.long() + base, B * n).reshape(-1)
+        self.shape, self.n = (B, E, n), n
+        self._sums = {}
+
+    def node_sum(self, m):
+        """(B * n_rel, C) slot rows -> (B * n + 1, C) sums by node."""
+        if m.dtype not in self._sums:
+            B, E, n = self.shape
+            order = torch.sort(self.flat, stable=True).indices
+            crow = torch.searchsorted(self.flat[order],
+                                      torch.arange(B * n + 2, device=m.device))
+            self._sums[m.dtype] = torch.sparse_csr_tensor(
+                crow, order, torch.ones(B * E, dtype=m.dtype, device=m.device),
+                (B * n + 1, B * E))
+        return self._sums[m.dtype] @ m.contiguous()
+
+    def select(self, x):
+        B, E, n = self.shape
+        rows = torch.nn.functional.pad(x.reshape(B * n, -1), (0, 0, 0, 1))
+        return _Gather.apply(rows, self).view(B, E, -1)
+
+    def aggregate(self, m):
+        B, E, n = self.shape
+        return _NodeSum.apply(m.reshape(B * E, -1), self)[:B * n].view(B, n, -1)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rows, rel):
+        ctx.rel = rel
+        return rows.index_select(0, rel.flat)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.rel.node_sum(grad), None
+
+
+class _NodeSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, m, rel):
+        ctx.rel = rel
+        return rel.node_sum(m)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.index_select(0, ctx.rel.flat), None
+
+
+def relations(R, n: int):
+    """The selection and aggregation of relations ``R`` over the first
+    ``n`` node columns: ``R`` one-hot float rows (B, n_rel, N), integer node
+    indices (B, n_rel) with -1 on empty slots, or what this function made
+    of either over the same ``n`` (returned as it is: a caller that runs
+    several forwards on one graph builds its relations once)."""
+    if isinstance(R, (_OneHot, _Indexed)):
+        if R.n != n:
+            raise ValueError(f"relations over {R.n} node columns where {n} are asked for")
+        return R
+    return _OneHot(R, n) if R.is_floating_point() else _Indexed(R, n)
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator=None) -> torch.Tensor:
@@ -141,14 +248,17 @@ class DynamicsPredictor(nn.Module):
         """Predict next particle positions.
 
         state (B, n_his, N, 3) position history (object + tool slots),
-        attrs (B, N, attr_dim), Rr/Rs (B, n_rel, N) one-hot receiver/sender
-        rows, p_instance (B, n_p, n_instance), action (B, N, action_dim).
-        Returns (pred_pos (B, n_p, 3), pred_motion (B, n_p, 3)).
+        attrs (B, N, attr_dim), Rr/Rs the receivers and senders: one-hot
+        float rows (B, n_rel, N), integer indices (B, n_rel) with -1 on
+        empty slots, or `relations` of either over N; p_instance (B, n_p,
+        n_instance), action (B, N, action_dim). Returns (pred_pos (B, n_p,
+        3), pred_motion (B, n_p, 3)).
         """
         cfg = self.cfg
         B, n_his, N, sd = state.shape
         n_p, n_instance = p_instance.shape[1], p_instance.shape[2]
-        Rr_t = Rr.transpose(1, 2)
+        recv, send = relations(Rr, N), relations(Rs, N)
+        FORWARDS["one_hot" if isinstance(recv, _OneHot) else "indexed"] += 1
         # (B, N, n_his * 3), history-major
         state_t = state.transpose(1, 2).reshape(B, N, n_his * sd)
 
@@ -167,12 +277,13 @@ class DynamicsPredictor(nn.Module):
 
         rel_parts = []
         if cfg.rel_attr_dim > 0:
-            rel_parts += [Rr @ attrs, Rs @ attrs]
+            rel_parts += [recv.select(attrs), send.select(attrs)]
         if cfg.rel_group_dim > 0:
             g = torch.cat([p_instance, p_instance.new_zeros((B, N - n_p, n_instance))], 1)
-            rel_parts.append(torch.sum(torch.abs(Rr @ g - Rs @ g), 2, keepdim=True))
+            rel_parts.append(torch.sum(torch.abs(recv.select(g) - send.select(g)), 2,
+                                       keepdim=True))
         if cfg.rel_distance_dim > 0:
-            rel_parts.append(Rr @ state_t - Rs @ state_t)
+            rel_parts.append(recv.select(state_t) - send.select(state_t))
         rel_inputs = torch.cat(rel_parts, 2)
 
         particle_encode = self.particle_encoder(p_inputs)
@@ -184,8 +295,8 @@ class DynamicsPredictor(nn.Module):
         for _ in range(cfg.pstep):
             eff_wr = rp.seg(1, effect)  # (B, N, nf)
             eff_ws = rp.seg(2, effect)
-            effect_rel = torch.relu(rel_pre + Rr @ eff_wr + Rs @ eff_ws)
-            agg = Rr_t @ effect_rel
+            effect_rel = torch.relu(rel_pre + recv.select(eff_wr) + send.select(eff_ws))
+            agg = recv.aggregate(effect_rel)
             effect = torch.relu(node_pre + pp.seg(1, agg) + effect)
 
         pred_motion = self.non_rigid_predictor(effect[:, :n_p])

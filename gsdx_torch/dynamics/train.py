@@ -3,8 +3,11 @@
 A train step is the n_future-step autoregressive unroll (each prediction
 fed back as the next step's object state, backpropagated through the
 whole unroll), then one Adam step with optax's `adam` settings. Batches
-come from `graph/dataset.py`'s `GraphSampler` on the same device. The
-products stay f32: nothing in the slice enables TF32.
+come from `graph/dataset.py`'s `GraphSampler` on the same device; the
+model and the length loss take their relations as the batch's index lists
+(`recv`, `send`), so endpoints are gathered and messages summed by
+receiver, not multiplied by one-hot rows. The products stay f32: nothing
+in the slice enables TF32.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from gsdx_torch.dynamics.model import DynamicsPredictor, ModelConfig, flax_params
+from gsdx_torch.dynamics.model import DynamicsPredictor, ModelConfig, flax_params, relations
 from gsdx_torch.dynamics.utils import length_loss, mse_loss, rigid_loss
 from gsdx_torch.graph.dataset import GraphBatch, GraphSampler
 from gsdx_torch.io.checkpoint import adam_state_tree, save_checkpoint
@@ -50,14 +53,16 @@ def unrolled_loss(model: DynamicsPredictor, batch: GraphBatch, cfg: TrainConfig,
     history shifts by one, and the next step takes ``action_future[:, fi]``.
     ``rigid_count`` is `rigid_loss`'s ``mask_count``."""
     state, action = batch.state, batch.action
-    n_p = batch.state_future.shape[2]
+    N, n_p = state.shape[2], batch.state_future.shape[2]
+    # one graph for the whole unroll: its relations are built once
+    recv, send = relations(batch.recv, N), relations(batch.send, N)
+    recv_obj, send_obj = relations(batch.recv, n_p), relations(batch.send, n_p)
     total = 0.0
     parts = {"mse": 0.0, "length": 0.0, "rigid": 0.0}
     for fi in range(cfg.n_future):
-        pred, _ = model(state, batch.attrs, batch.Rr, batch.Rs, batch.p_instance,
-                        action)
+        pred, _ = model(state, batch.attrs, recv, send, batch.p_instance, action)
         l_mse = mse_loss(pred, batch.state_future[:, fi])
-        l_len = length_loss(pred, state, batch.Rr, batch.Rs)
+        l_len = length_loss(pred, state, recv_obj, send_obj)
         step_loss = cfg.mse_weight * l_mse + cfg.length_weight * l_len
         parts["mse"] += l_mse
         parts["length"] += l_len

@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from gsdx_torch.dynamics.model import relations
+
 
 def umeyama(src, dst, mask, fixed_scale: bool = True):
     """Batched masked rigid alignment of ``src`` onto ``dst`` (B, N, 3),
@@ -41,12 +43,15 @@ def mse_loss(pred, gt):
 
 def length_loss(pred, state, Rr, Rs):
     """Edge-length preservation against the OLDEST history frame
-    (``state[:, 0]``, detached), over the object columns of Rr / Rs."""
+    (``state[:, 0]``, detached), over the object columns of Rr / Rs: one-hot
+    rows (B, n_rel, N), node indices (B, n_rel), or `relations` of either
+    over the n_p object columns. An empty slot (-1) or a tool end (index
+    n_p or more) reads a zero row; the mean is over every slot."""
     n_p = pred.shape[1]
     pos = state[:, 0, :n_p].detach()
-    Rr_o, Rs_o = Rr[:, :, :n_p], Rs[:, :, :n_p]
-    pos_diff = Rr_o @ pos - Rs_o @ pos
-    pred_diff = Rr_o @ pred - Rs_o @ pred
+    recv, send = relations(Rr, n_p), relations(Rs, n_p)
+    pos_diff = recv.select(pos) - send.select(pos)
+    pred_diff = recv.select(pred) - send.select(pred)
     pos_len = torch.sqrt(torch.sum(pos_diff ** 2, -1) + 1e-12)
     pred_len = torch.sqrt(torch.sum(pred_diff ** 2, -1) + 1e-12)
     return torch.mean((pred_len - pos_len) ** 2)

@@ -10,7 +10,8 @@ steps, both batched over B:
   * `build_batch` builds the batch from the frame rows and those draws with
     no randomness of its own: FPS -> radius FPS on the last history frame,
     history / future / tool tensors, noise, then the rotation (right
-    multiplied, as gsdx does), then edges on the rotated, noisy last frame.
+    multiplied, as gsdx does), then edges on the rotated, noisy last frame:
+    index lists (what training reads) and gsdx's one-hot rows of them.
 
 Splitting the two lets a test replay gsdx's `jax.random` draws through the
 port's `build_batch`. All shapes are static; variable particle counts become
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from gsdx_torch.core.device import require_device
-from gsdx_torch.graph.edges import construct_edges_batch
+from gsdx_torch.graph.edges import _one_hot, construct_edge_indices_batch
 from gsdx_torch.kernels.fps import farthest_point_sampling_batch, fps_rad_idx_batch
 from gsdx_torch.utils.profiling import span
 
@@ -65,6 +66,8 @@ class GraphBatch:
     tool_mask: torch.Tensor  # (B, N) bool
     Rr: torch.Tensor  # (B, max_nR, N) one-hot receivers
     Rs: torch.Tensor  # (B, max_nR, N) one-hot senders
+    recv: torch.Tensor  # (B, max_nR) int32 receivers, -1 on empty slots
+    send: torch.Tensor  # (B, max_nR) int32 senders, -1 on empty slots
 
     def to(self, device) -> "GraphBatch":
         return GraphBatch(**{f.name: getattr(self, f.name).to(device)
@@ -222,14 +225,14 @@ def build_batch(store: EpisodeStore, pair_rows: torch.Tensor, draws: SampleDraws
     action_future = _right_mul(action_future, R)
     state_future = _right_mul(state_future, R)
 
-    Rr, Rs = construct_edges_batch(state_history[:, -1], draws.adj, state_mask,
-                                   tool_mask, n_obj=max_nobj, topk=cfg.topk,
-                                   max_nR=cfg.max_nR, connect_all=cfg.connect_all)
+    recv, send = construct_edge_indices_batch(state_history[:, -1], draws.adj, state_mask,
+                                              tool_mask, n_obj=max_nobj, topk=cfg.topk,
+                                              max_nR=cfg.max_nR, connect_all=cfg.connect_all)
     return GraphBatch(state=state_history, action=states_delta,
                       tool_future=tool_future, action_future=action_future,
                       state_future=state_future, attrs=attrs, p_instance=p_instance,
                       obj_mask=obj_mask, state_mask=state_mask, tool_mask=tool_mask,
-                      Rr=Rr, Rs=Rs)
+                      Rr=_one_hot(recv, N), Rs=_one_hot(send, N), recv=recv, send=send)
 
 
 class GraphSampler:

@@ -16,6 +16,7 @@ import torch
 
 from gsdx.graph import dataset as jds
 from gsdx_torch.graph import dataset as tds
+from torch_batches import relation_indices
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
 
@@ -116,6 +117,10 @@ def test_build_batch_equals_gsdx_with_draws_replayed(rng, case, seed):
             np.testing.assert_array_equal(got, want, err_msg=f)
         else:
             np.testing.assert_allclose(got, want, rtol=0, atol=1e-6, err_msg=f)
+    # the index lists training reads are gsdx's one-hot rows, exactly
+    for f, R in (("recv", ref.Rr), ("send", ref.Rs)):
+        assert getattr(out, f).dtype == torch.int32, f
+        np.testing.assert_array_equal(getattr(out, f).numpy(), relation_indices(R), err_msg=f)
 
 
 def test_sampler_draws_and_batch(rng):
@@ -132,9 +137,10 @@ def test_sampler_draws_and_batch(rng):
     sampler = tds.GraphSampler(store, cfg, "train")
     a = sampler.sample(torch.Generator().manual_seed(3), 4)
     b = sampler.sample(torch.Generator().manual_seed(3), 4)
-    for f in FIELDS:
+    for f in FIELDS + ("recv", "send"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     assert torch.equal(a.state_mask[:, :20], a.obj_mask) and a.tool_mask[:, 20:].all()
     assert torch.equal(a.Rr.sum(2) > 0, a.Rs.sum(2) > 0)
+    assert torch.equal(a.Rr.sum(2) > 0, a.recv >= 0) and torch.equal(a.recv >= 0, a.send >= 0)
     moved = a.to("cpu")
     assert isinstance(moved, tds.GraphBatch) and torch.equal(moved.Rr, a.Rr)

@@ -44,6 +44,7 @@ from gsdx_torch.kernels.composite import composite_tiles_torch
 from gsdx_torch.render.rasterize import _Composite
 
 from test_dynamics import DATA_CFG, MODEL_CFG, TRAIN_CFG, synth_episodes
+from torch_batches import port_fields
 from test_tracking import CFG_RASTER, H, W, make_cams, make_gt_scene, render_targets
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
@@ -84,13 +85,14 @@ def composite_inputs():
 
 
 def dp_inputs():
-    """tests/test_dist.py's DP batch and init, in numpy."""
+    """tests/test_dist.py's DP batch (the port's fields, its index lists from
+    gsdx's one-hot rows) and init, in numpy."""
     sampler = JSampler(synth_episodes(np.random.default_rng(0)), DATA_CFG, phase="train")
     batch = sampler.sample(jax.random.PRNGKey(2), 8)
     params = j_init_params(JModel(MODEL_CFG), TRAIN_CFG, DATA_CFG, jax.random.PRNGKey(0))
     train = {k: getattr(TRAIN_CFG, k)
              for k in ("batch_size", "n_his", "n_future", "lr", "length_weight")}
-    return {"batch": {f: np.array(getattr(batch, f)) for f in BATCH_FIELDS},
+    return {"batch": port_fields(batch),
             "params": jax.tree.map(np.asarray, jax.device_get(params)),
             "model": MODEL_CFG._asdict(), "train": train, "rigid_weights": (0.0, 0.05)}
 
@@ -315,7 +317,7 @@ def dp_references(inputs):
 def jds_batch(fields):
     from gsdx.graph.dataset import GraphBatch as JBatch
 
-    return JBatch(**{k: jnp.asarray(v) for k, v in fields.items()})
+    return JBatch(**{f.name: jnp.asarray(fields[f.name]) for f in dataclasses.fields(JBatch)})
 
 
 @pytest.mark.parametrize("rigid_weight", [0.0, 0.05])

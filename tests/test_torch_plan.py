@@ -30,7 +30,8 @@ from gsdx.realworld.perception import PerceptionModule as JPerception
 from gsdx.render.rasterize import RasterizeConfig as JRasterCfg
 from gsdx.render.rasterize import rasterize as j_rasterize
 from gsdx_torch.core import pointcloud as tpc
-from gsdx_torch.dynamics.model import DynamicsPredictor, ModelConfig, load_flax_params
+from gsdx_torch.dynamics.model import (FORWARDS, DynamicsPredictor, ModelConfig,
+                                       load_flax_params, reset_forwards)
 from gsdx_torch.kernels.fps import farthest_point_sampling
 from gsdx_torch.plan import actions as tact
 from gsdx_torch.plan import cost as tcost
@@ -225,8 +226,10 @@ def test_rollout_module_path_matches_gsdx(rng, scene):
         scene["jparams"], jnp.asarray(scene["state"]), jnp.asarray(acts))
     roll_t = make_batched_rollout(scene["model"], RolloutSpec(**SPEC, sort_chunks=1,
                                                               fused="off"))
+    reset_forwards()
     with torch.no_grad():
         out = roll_t(torch.as_tensor(scene["state"]), torch.as_tensor(acts))
+    assert FORWARDS["one_hot"] > 0 and FORWARDS["indexed"] == 0
     # f32 weights and math on both sides: 1e-5 m after the chained pushes
     np.testing.assert_allclose(out["state_seqs"].numpy(), np.asarray(ref["state_seqs"]),
                                rtol=0, atol=1e-5)

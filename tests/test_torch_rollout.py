@@ -14,7 +14,8 @@ from gsdx.graph.dataset import GraphDatasetConfig as JDataConfig
 from gsdx.rollout import dynamics_module as jdm
 from gsdx.rollout import skinning as jsk
 from gsdx_torch.core.transforms import quat_to_rotmat
-from gsdx_torch.dynamics.model import DynamicsPredictor, ModelConfig, load_flax_params
+from gsdx_torch.dynamics.model import (FORWARDS, DynamicsPredictor, ModelConfig,
+                                       load_flax_params, reset_forwards)
 from gsdx_torch.rollout import dynamics_module as tdm
 from gsdx_torch.rollout import skinning as tsk
 
@@ -137,7 +138,7 @@ def test_rollout_skips_static_eef(rng):
 def test_rollout_matches_gsdx(rng):
     """Six steps (one static) with the same flax weights: positions within
     1e-5 m, quaternions within 1e-5, bones within 1e-5 m; then the
-    smoothing equal."""
+    smoothing equal. The module's forwards take one-hot rows."""
     jm, tm = modules()
     n = 120
     xyz0 = (rng.normal(size=(n, 3)) * 0.08).astype(np.float32)
@@ -146,7 +147,9 @@ def test_rollout_matches_gsdx(rng):
     eef[:, 0, 0] = -0.1 + 0.02 * np.array([0, 1, 2, 2, 3, 4])
     inliers = np.sort(rng.choice(n, 100, replace=False))
     ref = jm.rollout(jnp.asarray(xyz0), jnp.asarray(quat0), eef, 6, inlier_idx=inliers)
+    reset_forwards()
     out = tm.rollout(T(xyz0), T(quat0), eef, 6, inlier_idx=inliers)
+    assert FORWARDS["one_hot"] > 0 and FORWARDS["indexed"] == 0
     assert not np.array_equal(out["xyz"][-1], xyz0)
     for k in ("xyz", "quat", "xyz_bones", "eef"):
         np.testing.assert_allclose(out[k], ref[k], rtol=0, atol=1e-5, err_msg=k)

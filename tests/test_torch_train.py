@@ -5,6 +5,7 @@ The trainers draw their batches from different generators, so the port's
 unroll is compared on batches gsdx's sampler built (injected). The JAX
 side runs under `jax.jit`."""
 
+import dataclasses
 import os
 
 import jax
@@ -23,25 +24,26 @@ from gsdx.graph import dataset as jds
 from gsdx.io.checkpoint import load_checkpoint as j_load_checkpoint
 from gsdx.io.checkpoint import save_checkpoint as j_save_checkpoint
 from gsdx_torch.dynamics import utils as tutils
-from gsdx_torch.dynamics.model import (DynamicsPredictor, ModelConfig, flax_params,
-                                       load_flax_params, params_from_flax)
+from gsdx_torch.dynamics.model import (FORWARDS, DynamicsPredictor, ModelConfig,
+                                       flax_params, load_flax_params, params_from_flax,
+                                       reset_forwards)
 from gsdx_torch.dynamics.train import TrainConfig, init_params, make_train_step, train_dynamics
 from gsdx_torch.dynamics.train import unrolled_loss
 from gsdx_torch.graph import dataset as tds
 from gsdx_torch.io import checkpoint as tckpt
+from torch_batches import port_batch
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
 
 MODEL = dict(nf_particle=48, nf_relation=48, nf_effect=48, n_his=3)
 DATA = dict(n_his=3, n_future=3, max_nobj=16, max_nR=64, topk=4,
             fps_radius_range=(0.01, 0.03), adj_radius_range=(0.05, 0.09))
-FIELDS = ("state", "action", "tool_future", "action_future", "state_future", "attrs",
-          "p_instance", "obj_mask", "state_mask", "tool_mask", "Rr", "Rs")
 
 
 def gsdx_batches(n, seed=0, batch=4):
     """``n`` gsdx batches from a sampler over a drifting 0.2 m cloud pushed
-    6 mm a frame, with their port copies."""
+    6 mm a frame, with their port copies (index lists from gsdx's one-hot
+    rows)."""
     rng = np.random.default_rng(seed)
     T, P = 12, 48
     xyz = (rng.uniform(-0.1, 0.1, size=(1, P, 3))
@@ -55,8 +57,7 @@ def gsdx_batches(n, seed=0, batch=4):
     out = []
     for k in jax.random.split(jax.random.PRNGKey(seed), n):
         jb = sampler.sample(k, batch)
-        tb = tds.GraphBatch(**{f: torch.from_numpy(np.array(getattr(jb, f))) for f in FIELDS})
-        out.append((jb, tb))
+        out.append((jb, port_batch(jb)))
     return out
 
 
@@ -76,7 +77,8 @@ def grads_as_torch(tree):
 @pytest.mark.parametrize("rigid_weight", [0.0, 0.05])
 def test_unrolled_loss_and_gradients_match(rigid_weight):
     """The loss within rtol 1e-5; every gradient leaf within 1e-5 of its
-    largest entry in `jax.value_and_grad`."""
+    largest entry in `jax.value_and_grad`. gsdx multiplies by its one-hot
+    rows; the port takes the batch's index lists."""
     jm, params, tm = models()
     jcfg = JTrainConfig(n_his=3, n_future=3, length_weight=0.1, rigid_weight=rigid_weight)
     tcfg = TrainConfig(n_his=3, n_future=3, length_weight=0.1, rigid_weight=rigid_weight)
@@ -85,8 +87,10 @@ def test_unrolled_loss_and_gradients_match(rigid_weight):
     for jb, tb in gsdx_batches(2):
         (loss_j, parts_j), grads_j = vg(params, jb)
         tm.zero_grad()
+        reset_forwards()
         loss_t, parts_t = unrolled_loss(tm, tb, tcfg)
         loss_t.backward()
+        assert FORWARDS == {"indexed": tcfg.n_future, "one_hot": 0}
         np.testing.assert_allclose(float(loss_t), float(loss_j), rtol=1e-5)
         for k in ("mse", "length", "rigid"):
             np.testing.assert_allclose(float(parts_t[k]), float(parts_j[k]), rtol=1e-5,
@@ -184,19 +188,45 @@ def test_checkpoints_and_optimizer_state_cross_both_ways(rng, tmp_path):
                                    p.numpy(), rtol=0, atol=1e-6, err_msg=name)
 
 
-def test_train_dynamics_schedule_and_files(tmp_path):
-    """The loop on the CPU: finite losses, the checkpoint schedule, and a
-    latest.ckpt / latest_optim.ckpt pair that gsdx restores."""
-    _, params, _ = models()
-    rng = np.random.default_rng(1)
+def port_store(seed=1, x0=0.0):
+    """The port's `EpisodeStore` on the CPU: a drifting 0.2 m cloud and a
+    pusher moving 6 mm a frame from ``x0``."""
+    rng = np.random.default_rng(seed)
     T, P = 12, 48
     xyz = (rng.uniform(-0.1, 0.1, size=(1, P, 3))
            + np.cumsum(rng.normal(scale=0.003, size=(T, P, 3)), 0)).astype(np.float32)
     eef = np.zeros((T, 1, 3), np.float32)
-    eef[:, 0, 0] = 0.006 * np.arange(T)
+    eef[:, 0, 0] = x0 + 0.006 * np.arange(T)
     rows = np.array([np.clip(np.arange(t - 2, t + 4), 0, T - 1) for t in range(T)])
     pairs = np.concatenate([np.zeros((T, 1), np.int64), rows], 1)
-    store = tds.EpisodeStore.from_numpy([xyz], [eef], [pairs], device="cpu")
+    return tds.EpisodeStore.from_numpy([xyz], [eef], [pairs], device="cpu")
+
+
+def test_train_step_takes_the_index_form():
+    """A train step on a `GraphSampler` batch runs n_future forwards on the
+    batch's index lists and none on its one-hot rows, and its loss is the
+    one-hot form's to f32 rounding."""
+    sampler = tds.GraphSampler(port_store(x0=-0.12), tds.GraphDatasetConfig(**DATA), "train")
+    batch = sampler.sample(torch.Generator().manual_seed(0), 4)
+    assert (batch.recv >= 0).any() and (batch.recv < 0).any()
+    cfg = TrainConfig(n_his=3, n_future=3, length_weight=0.1)
+    model = init_params(ModelConfig(**MODEL), 0, "cpu")
+    one_hot = dataclasses.replace(batch, recv=batch.Rr, send=batch.Rs)
+    with torch.no_grad():
+        want, _ = unrolled_loss(model, one_hot, cfg)
+    train_step, _, _ = make_train_step(model, cfg)
+    reset_forwards()
+    loss, _ = train_step(batch)
+    assert FORWARDS == {"indexed": cfg.n_future, "one_hot": 0}
+    # the aggregation's sums in another order than the products': f32 rounding
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-6)
+
+
+def test_train_dynamics_schedule_and_files(tmp_path):
+    """The loop on the CPU: finite losses, the checkpoint schedule, and a
+    latest.ckpt / latest_optim.ckpt pair that gsdx restores."""
+    _, params, _ = models()
+    store = port_store()
     dcfg = tds.GraphDatasetConfig(**DATA)
     cfg = TrainConfig(batch_size=2, n_epochs=11, n_iters_per_epoch_train=2,
                       n_iters_per_epoch_valid=1, n_his=3, n_future=3, log_interval=1,
