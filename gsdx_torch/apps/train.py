@@ -7,6 +7,11 @@ train and valid, and trains with checkpoints under
 
     python -m gsdx_torch.apps.train --config configs/rope.yaml
 
+A configuration whose model_config reads ``network: gns``
+(`configs/gns_water3d.yaml`) trains GNS on windows of n_his + 1
+consecutive frames of every particle of the same episodes
+(`load_window_store`), normalised by the train episodes' statistics.
+
 `--dp` trains data-parallel, one rank a GPU, as gsdx's `--dp` loop: every
 rank draws the same global batch from the same seeded generator and takes
 its rows (`gsdx_torch.dist`), and the first rank prints each epoch's loss
@@ -60,6 +65,43 @@ def load_episode_store(raw_cfg: dict, phase: str, device):
     return EpisodeStore.from_numpy(particle_list, eef_list, pair_list, device=device)
 
 
+def load_window_store(raw_cfg: dict, phase: str, window: int, device):
+    """An `EpisodeStore` of the ``phase`` episodes' trajectories (the same
+    80/20 split) whose frame rows are every window of ``window``
+    consecutive frames; every episode has to hold one particle count."""
+    from gsdx_torch.graph.dataset import EpisodeStore, window_rows
+
+    ds = raw_cfg["dataset_config"]["datasets"][0]
+    name = ds["name"]
+    root = Path(ds["base_dir"]) / "ckpts" / f"exp_{name}"
+    paths = sorted(glob.glob(str(root / "episode_*" / name / "episode_*" /
+                                 "param_downsampled.npy")))
+    cut = int(len(paths) * 0.8)
+    xyz = [np.load(p) for p in (paths[:cut] if phase == "train" else paths[cut:])]
+    if len({x.shape for x in xyz}) != 1:
+        raise ValueError(f"GNS batches whole clouds: the {phase} episodes' trajectories "
+                         f"differ in shape ({sorted({x.shape for x in xyz})})")
+    pos = torch.as_tensor(np.stack(xyz).astype(np.float32), device=device)
+    E, T, P, _ = pos.shape
+    return EpisodeStore(pos, pos.new_zeros((E, T, 0, 3)), window_rows(E, T, window, device))
+
+
+def train_gns(raw: dict, train_cfg, model_cfg, device) -> None:
+    from gsdx_torch.dynamics.gns import statistics
+    from gsdx_torch.dynamics.train import train_dynamics
+    from gsdx_torch.graph.dataset import WindowSampler
+
+    kind = raw["dataset_config"]["datasets"][0].get("particle_type", 5)
+    samplers = []
+    for phase in ("train", "valid"):
+        store = load_window_store(raw, phase, model_cfg.n_his + 1, device)
+        types = torch.full((store.particle_pos.shape[2],), kind, dtype=torch.int64)
+        samplers.append(WindowSampler(store, types, model_cfg.noise_std,
+                                      model_cfg.kinematic_type))
+    train_dynamics(*samplers, model_cfg, train_cfg,
+                   statistics=statistics(samplers[0].store.particle_pos, model_cfg.noise_std))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--config", required=True)
@@ -69,17 +111,24 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     from gsdx_torch.core.device import require_device
+    from gsdx_torch.dynamics.gns import GNSConfig
     from gsdx_torch.dynamics.train import train_dynamics
     from gsdx_torch.graph.dataset import GraphSampler
     from gsdx_torch.io.config import load_config, parse_yaml
 
+    train_cfg, model_cfg, data_cfg = load_config(args.config)
+    gns = isinstance(model_cfg, GNSConfig)
+    if args.dp and gns:
+        raise SystemExit("--dp trains the interaction network; GNS trains on one device")
     if args.dp:
         train_dp(args.config, args.device)
         return
     device = require_device(args.device)
     with open(args.config) as f:
         raw = parse_yaml(f.read())
-    train_cfg, model_cfg, data_cfg = load_config(args.config)
+    if gns:
+        train_gns(raw, train_cfg, model_cfg, device)
+        return
     train_sampler = GraphSampler(load_episode_store(raw, "train", device), data_cfg, "train")
     valid_sampler = GraphSampler(load_episode_store(raw, "valid", device), data_cfg, "valid")
     train_dynamics(train_sampler, valid_sampler, model_cfg, train_cfg)

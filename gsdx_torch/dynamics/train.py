@@ -8,6 +8,10 @@ model and the length loss take their relations as the batch's index lists
 (`recv`, `send`), so endpoints are gathered and messages summed by
 receiver, not multiplied by one-hot rows. The products stay f32: nothing
 in the slice enables TF32.
+
+GNS (`dynamics/gns.py`) trains through the same step with its own loss
+(`gns.one_step_loss`, on `WindowSampler` batches) and its decaying rate
+(`gns.learning_rate`).
 """
 
 from __future__ import annotations
@@ -19,9 +23,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from gsdx_torch.dynamics.model import DynamicsPredictor, ModelConfig, flax_params, relations
+from gsdx_torch.dynamics.gns import GNS, GNSConfig, learning_rate, one_step_loss, state_tree
+from gsdx_torch.dynamics.model import DynamicsPredictor, ModelConfig, flax_tree, relations
 from gsdx_torch.dynamics.utils import length_loss, mse_loss, rigid_loss
-from gsdx_torch.graph.dataset import GraphBatch, GraphSampler
+from gsdx_torch.graph.dataset import GraphBatch, GraphSampler, WindowSampler
 from gsdx_torch.io.checkpoint import adam_state_tree, save_checkpoint
 from gsdx_torch.utils.profiling import host_read, span
 
@@ -79,55 +84,75 @@ def unrolled_loss(model: DynamicsPredictor, batch: GraphBatch, cfg: TrainConfig,
     return total, parts
 
 
-def make_train_step(model: DynamicsPredictor, cfg: TrainConfig):
+def make_train_step(model: torch.nn.Module, cfg: TrainConfig, loss_fn=unrolled_loss,
+                    schedule=None):
     """Returns (train_step, eval_step, optimizer). ``train_step(batch)``
-    takes one Adam step (lr from the config, betas 0.9 / 0.999, eps 1e-8
-    outside the square root: optax's `adam`) and returns the detached
-    (loss, parts); ``eval_step(batch)`` the loss without gradients. A train
-    step is a span ``train.step`` timed on the device, holding
-    ``train.unroll``, ``train.backward`` and ``train.adam``."""
+    takes one Adam step on ``loss_fn(model, batch, cfg)`` -> (loss, parts)
+    (lr from the config, then ``schedule(k)`` after k steps where one is
+    given; betas 0.9 / 0.999, eps 1e-8 outside the square root: optax's
+    `adam`) and returns the detached (loss, parts);
+    ``eval_step(batch)`` the loss without gradients. A train step is a span
+    ``train.step`` timed on the device, holding ``train.unroll`` (the loss),
+    ``train.backward`` and ``train.adam``."""
     optimizer = torch.optim.Adam(model.parameters(), lr=cfg.lr,
                                  betas=(0.9, 0.999), eps=1e-8)
     device = next(model.parameters()).device
+    steps = [0]
 
-    def train_step(batch: GraphBatch):
+    def train_step(batch):
         with span("train.step", device):
             with span("train.unroll"):
                 optimizer.zero_grad(set_to_none=True)
-                loss, parts = unrolled_loss(model, batch, cfg)
+                loss, parts = loss_fn(model, batch, cfg)
             with span("train.backward"):
                 loss.backward()
             with span("train.adam"):
                 optimizer.step()
+                if schedule is not None:
+                    steps[0] += 1
+                    for group in optimizer.param_groups:
+                        group["lr"] = schedule(steps[0])
                 return loss.detach(), {k: torch.as_tensor(v).detach() for k, v in parts.items()}
 
-    def eval_step(batch: GraphBatch):
+    def eval_step(batch):
         with torch.no_grad():
-            return unrolled_loss(model, batch, cfg)
+            return loss_fn(model, batch, cfg)
 
     return train_step, eval_step, optimizer
 
 
-def init_params(model_cfg: ModelConfig, seed: int,
-                device: str | torch.device) -> DynamicsPredictor:
-    """A fresh `DynamicsPredictor` with flax's initialisation (lecun-normal
-    kernels, zero biases), drawn from a CPU generator seeded with ``seed``,
-    on ``device``."""
-    return DynamicsPredictor(model_cfg,
-                             generator=torch.Generator().manual_seed(seed)).to(device)
+def init_params(model_cfg: ModelConfig | GNSConfig, seed: int,
+                device: str | torch.device) -> torch.nn.Module:
+    """A fresh network of ``model_cfg``'s kind, drawn from a CPU generator
+    seeded with ``seed``, on ``device``: a `DynamicsPredictor` with flax's
+    initialisation (lecun-normal kernels, zero biases), or a `GNS` with
+    Sonnet's."""
+    net = GNS if isinstance(model_cfg, GNSConfig) else DynamicsPredictor
+    return net(model_cfg, generator=torch.Generator().manual_seed(seed)).to(device)
 
 
-def train_dynamics(train_sampler: GraphSampler, valid_sampler: Optional[GraphSampler],
-                   model_cfg: ModelConfig, cfg: TrainConfig, progress: bool = True):
+def train_dynamics(train_sampler: GraphSampler | WindowSampler,
+                   valid_sampler: Optional[GraphSampler | WindowSampler],
+                   model_cfg: ModelConfig | GNSConfig, cfg: TrainConfig, progress: bool = True,
+                   statistics: dict | None = None):
     """The training loop on the samplers' device, with the reference's
     checkpoint schedule under ``cfg.out_dir``/checkpoints: model_{e}.ckpt
     after epochs 1-9, every 10th to 100, then every 100th; latest.ckpt and
     latest_optim.ckpt (Adam's state in optax's layout) every epoch; and
-    loss.png. Returns (model, optimizer, history)."""
+    loss.png. A `GNSConfig` trains GNS on `WindowSampler` batches by its
+    one-step loss at its decaying rate, normalised by ``statistics``
+    (`gns.statistics`), and its trees are its state dict split at the dots
+    (`gns.state_tree`). Returns
+    (model, optimizer, history)."""
     device = train_sampler.store.device
     g = torch.Generator(device=device).manual_seed(cfg.random_seed)
     model = init_params(model_cfg, cfg.random_seed, device)
-    train_step, eval_step, optimizer = make_train_step(model, cfg)
+    if isinstance(model, GNS):
+        model.set_statistics(statistics)
+        loss_fn, tree, schedule = one_step_loss, state_tree, learning_rate(model_cfg, cfg.lr)
+    else:
+        loss_fn, tree, schedule = unrolled_loss, flax_tree, None
+    train_step, eval_step, optimizer = make_train_step(model, cfg, loss_fn, schedule)
 
     ckpt_dir = os.path.join(cfg.out_dir, "checkpoints")
     os.makedirs(ckpt_dir, exist_ok=True)
@@ -152,11 +177,12 @@ def train_dynamics(train_sampler: GraphSampler, valid_sampler: Optional[GraphSam
                       f"valid {history['valid'][-1]:.6f}, {time.time() - t0:.2f}s")
 
         e = epoch + 1
+        params = tree(model.state_dict())
         if e < 10 or (e < 100 and e % 10 == 0) or e % 100 == 0:
-            save_checkpoint(os.path.join(ckpt_dir, f"model_{e}.ckpt"), flax_params(model))
-        save_checkpoint(os.path.join(ckpt_dir, "latest.ckpt"), flax_params(model))
+            save_checkpoint(os.path.join(ckpt_dir, f"model_{e}.ckpt"), params)
+        save_checkpoint(os.path.join(ckpt_dir, "latest.ckpt"), params)
         save_checkpoint(os.path.join(ckpt_dir, "latest_optim.ckpt"),
-                        adam_state_tree(model, optimizer))
+                        adam_state_tree(model, optimizer, tree))
         _plot_losses(history, os.path.join(cfg.out_dir, "loss.png"))
     return model, optimizer, history
 

@@ -16,6 +16,10 @@ steps, both batched over B:
 Splitting the two lets a test replay gsdx's `jax.random` draws through the
 port's `build_batch`. All shapes are static; variable particle counts become
 masks.
+
+GNS (`dynamics/gns.py`) trains on windows instead: a `WindowSampler` draws
+frame rows of consecutive frames of every particle from the same store and
+GNS's random-walk noise for the input frames (`WindowBatch`).
 """
 
 from __future__ import annotations
@@ -257,3 +261,59 @@ class GraphSampler:
             draws = draw_samples(g, batch_size, self.store.particle_pos.shape[2], self.cfg,
                                  self.noise, dev)
             return build_batch(self.store, self.store.pair_list[rows], draws, self.cfg)
+
+
+@dataclasses.dataclass
+class WindowBatch:
+    """A batch of GNS windows: ``window`` consecutive frames of every
+    particle, the last one the target."""
+
+    position: torch.Tensor  # (B, window, P, 3)
+    noise: torch.Tensor  # (B, window - 1, P, 3) random-walk noise of the inputs
+    particle_type: torch.Tensor  # (B, P) int64
+
+
+def window_rows(episodes: int, frames: int, window: int, device) -> torch.Tensor:
+    """Frame rows [episode, t, ..., t + window - 1] of every window of
+    ``window`` consecutive frames of ``episodes`` episodes of ``frames``."""
+    starts = torch.arange(frames - window + 1, device=device)
+    ep = torch.arange(episodes, device=device).repeat_interleave(starts.numel())
+    t = starts.repeat(episodes)[:, None] + torch.arange(window, device=device)
+    return torch.cat([ep[:, None], t], 1)
+
+
+def random_walk_noise(g: torch.Generator, shape, std_last: float, device):
+    """learned_simulator's `get_random_walk_noise_for_position_sequence`
+    for (B, F, P, 3) input frames: velocity noise N(0, std_last^2 / (F - 1))
+    a step, summed over time (a random walk whose last velocity's std is
+    ``std_last``), integrated into positions with none on the first frame."""
+    B, F, P, d = shape
+    steps = torch.randn((B, F - 1, P, d), generator=g, device=device) * (std_last / (F - 1) ** 0.5)
+    velocity = torch.cumsum(steps, 1)
+    return torch.cat([velocity.new_zeros((B, 1, P, d)), torch.cumsum(velocity, 1)], 1)
+
+
+class WindowSampler:
+    """GNS batches from an `EpisodeStore` whose frame rows are windows
+    (`window_rows`): uniform rows, then the random-walk noise of the input
+    frames, zero on kinematic particles; all on the store's device."""
+
+    def __init__(self, store: EpisodeStore, particle_type: torch.Tensor, noise_std: float,
+                 kinematic_type: int = 3):
+        self.store, self.noise_std = store, float(noise_std)
+        self.particle_type = particle_type.to(store.device, torch.int64)
+        self.moving = (self.particle_type != kinematic_type)[None, None, :, None]
+
+    @property
+    def num_pairs(self) -> int:
+        return int(self.store.pair_list.shape[0])
+
+    def sample(self, g: torch.Generator, batch_size: int) -> WindowBatch:
+        dev = self.store.device
+        with span("train.sample"):
+            rows = self.store.pair_list[
+                torch.randint(0, self.num_pairs, (batch_size,), generator=g, device=dev)]
+            position = self.store.particle_pos[rows[:, :1], rows[:, 1:]]
+            B, W, P, d = position.shape
+            noise = random_walk_noise(g, (B, W - 1, P, d), self.noise_std, dev) * self.moving
+            return WindowBatch(position, noise, self.particle_type.expand(B, P))

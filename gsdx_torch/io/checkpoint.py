@@ -286,16 +286,19 @@ def load_trained_model(config: str, epoch: str, device):
 # --------------------------------------------------------------------------
 
 
-def adam_state_tree(model, optimizer: "torch.optim.Adam") -> dict:
+def adam_state_tree(model, optimizer: "torch.optim.Adam", tree=None) -> dict:
     """The Adam state of ``model``'s weights in optax's layout, as gsdx's
     trainer writes `latest_optim.ckpt`: {"0": {"count": int32 scalar, "mu":
-    <flax param tree>, "nu": <flax param tree>}, "1": {}} (optax's adam is a
-    chain of scale_by_adam and a learning-rate scale with no state). The
-    moments map to the flax tree as the weights do: torch's exp_avg is mu,
-    exp_avg_sq is nu, and the step count is optax's count."""
+    <param tree>, "nu": <param tree>}, "1": {}} (optax's adam is a chain of
+    scale_by_adam and a learning-rate scale with no state). The moments map
+    to the param tree as the weights do (``tree``, by default the flax tree
+    of a `DynamicsPredictor`): torch's exp_avg is mu, exp_avg_sq is nu, and
+    the step count is optax's count."""
     import torch
 
     from gsdx_torch.dynamics.model import flax_tree
+
+    tree = tree or flax_tree
 
     mu, nu, count = {}, {}, 0
     for name, p in model.named_parameters():
@@ -303,8 +306,8 @@ def adam_state_tree(model, optimizer: "torch.optim.Adam") -> dict:
         mu[name] = st.get("exp_avg", torch.zeros_like(p))
         nu[name] = st.get("exp_avg_sq", torch.zeros_like(p))
         count = int(st["step"]) if "step" in st else count
-    return {"0": {"count": np.asarray(count, np.int32), "mu": flax_tree(mu),
-                  "nu": flax_tree(nu)}, "1": {}}
+    return {"0": {"count": np.asarray(count, np.int32), "mu": tree(mu),
+                  "nu": tree(nu)}, "1": {}}
 
 
 def load_adam_state(model, optimizer: "torch.optim.Adam", tree: dict) -> None:

@@ -179,7 +179,10 @@ def _pick(d: Dict[str, Any], mapping: Dict[str, str], cls, extra=None):
 
 def load_config(path: str):
     """Parse a reference-format YAML (e.g. `configs/rope.yaml`) into
-    (TrainConfig, ModelConfig, GraphDatasetConfig)."""
+    (TrainConfig, ModelConfig, GraphDatasetConfig); a model_config with
+    ``network: gns`` (`configs/gns_water3d.yaml`) into (TrainConfig,
+    GNSConfig, the dataset block's first entry as it is)."""
+    from gsdx_torch.dynamics.gns import GNSConfig
     from gsdx_torch.dynamics.model import ModelConfig
     from gsdx_torch.dynamics.train import TrainConfig
     from gsdx_torch.graph.dataset import GraphDatasetConfig
@@ -198,13 +201,16 @@ def load_config(path: str):
          "log_interval": "log_interval", "random_seed": "random_seed",
          "n_his": "n_his", "n_future": "n_future", "mse_loss": "mse_weight",
          "length_loss": "length_weight", "out_dir": "out_dir",
-         "dist_thresh": "dist_thresh"},
+         "dist_thresh": "dist_thresh", "lr": "lr"},
         TrainConfig,
         extra={
             "n_iters_per_epoch_train": tc.get("n_iters_per_epoch", {}).get("train", 100),
             "n_iters_per_epoch_valid": tc.get("n_iters_per_epoch", {}).get("valid", 10),
         },
     )
+    if mc.get("network", "interaction") == "gns":
+        model_cfg = _pick(mc, {k: k for k in GNSConfig._fields}, GNSConfig)
+        return train_cfg, model_cfg._replace(bounds=tuple(map(tuple, model_cfg.bounds))), dc
     model_cfg = _pick(
         mc,
         {k: k for k in ("nf_particle", "nf_relation", "nf_effect", "attr_dim",
