@@ -476,6 +476,9 @@ def ptxas_report(logs) -> dict:
             fps = re.search(r"fps_kernelILi(\d+)ELi(\d+)E", m.group(1))
             if fps:  # one entry per (coordinates, points a thread)
                 name = f"fps_d{fps.group(1)}_ppt{fps.group(2)}"
+            edges = re.search(r"edges_kernelILi(\d+)E", m.group(1))
+            if edges:  # one entry per 32-column words of a row
+                name = f"edges_w{edges.group(1)}"
             if name in ("fwd", "bwd"):  # one entry per n_accum instantiation
                 nacc = re.search(rf"{name}_kernelILi(\d+)E", m.group(1))
                 name = f"composite_{name}_nacc{nacc.group(1) if nacc else '?'}"
@@ -622,11 +625,12 @@ def phase_build() -> dict:
     the compositor, the GEMM and the message kernel must spill no
     register, and the hot-loop probe's SASS must hold MUFU instructions in
     its transcendental variant only. The FPS kernel's 20 instantiations (1-4
-    coordinates x 1-16 points a thread) must spill nothing."""
-    from gsdx_torch.kernels import composite, fps, gnn_forward, probes
+    coordinates x 1-16 points a thread) must spill nothing, nor the radius
+    graph's 8 (1-8 words of 32 columns a row)."""
+    from gsdx_torch.kernels import composite, edges, fps, gnn_forward, probes
 
     libs = (composite.LIBRARY, gnn_forward.LIBRARY, gnn_forward.GEMM_LIBRARY,
-            probes.LIBRARY, fps.LIBRARY)
+            probes.LIBRARY, fps.LIBRARY, edges.LIBRARY)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         logs = list(pool.map(lambda lib: lib.build(), libs))
@@ -644,9 +648,12 @@ def phase_build() -> dict:
                              "forward and backward at n_accum 4 and 7")
     if len([k for k in ptxas if k.startswith("fps_")]) != 20:
         raise AssertionError(f"ptxas reported {sorted(ptxas)}: expected 20 FPS instantiations")
-    # the compositor, every GEMM instantiation, the message kernel and FPS spill nothing
+    if len([k for k in ptxas if k.startswith("edges_")]) != 8:
+        raise AssertionError(f"ptxas reported {sorted(ptxas)}: expected 8 edges instantiations")
+    # the compositor, every GEMM instantiation, the message kernel, FPS and
+    # the radius graph spill nothing
     checked = {k: v for k, v in ptxas.items()
-               if k.startswith(("composite_", "gnn_gemm", "gnn_message", "fps_"))}
+               if k.startswith(("composite_", "gnn_gemm", "gnn_message", "fps_", "edges_"))}
     if sorted(k for k in checked if k.startswith("gnn_gemm")) != [
             "gnn_gemm_bn128", "gnn_gemm_bn128_res", "gnn_gemm_bn256"] or "gnn_message" not in checked:
         raise AssertionError(f"ptxas reported {sorted(ptxas)}: expected the GEMM at "
@@ -663,7 +670,7 @@ def phase_build() -> dict:
                         "composite_bwd", "composite_bwd_presort",
                         "gnn_linear", "gnn_gemm", "gnn_edge_first", "gnn_segments",
                         "gnn_message", "hot_loop", "hot_loop_poly", "dynamic_roll",
-                        "fps", "fps_radius"]}
+                        "fps", "fps_radius", "edges"]}
 
 
 def check_forward(tf, counts, geo: dict, presort: bool, what: str):
@@ -1146,30 +1153,37 @@ def trajectory_particles(n_obj: int) -> torch.Tensor:
     return traj[:, idx]
 
 
-def gnn_inputs(B: int, n_obj: int, n_pad: int, max_nR: int, topk: int,
-               adj: float, connect_all: bool):
-    """One chunk of the rollout's GNN inputs: sample b's history is three
-    consecutive frames of the committed trajectory starting at b % 14, its
-    pusher a random point near the object; edges by the port's
-    `construct_edge_indices_batch` on the last frame."""
-    from gsdx_torch.graph.edges import construct_edge_indices_batch
-
+def chunk_states(B: int, n_obj: int, g):
+    """(B, 3, n_obj + 1, 3) histories of one rollout chunk, mask and tool
+    mask: sample b's history is three consecutive frames of the committed
+    trajectory starting at b % 14, its pusher a random point near the
+    object (from ``g``)."""
     frames = trajectory_particles(n_obj)
-    g = torch.Generator(device="cuda").manual_seed(0)
     N = n_obj + 1
     starts = torch.arange(B, device="cuda") % 14
     hist = torch.stack([frames[starts + h] for h in range(3)], 1)  # (B, 3, n_obj, 3)
     tool = hist[:, :, :1] + 0.03 * torch.randn(B, 1, 1, 3, device="cuda", generator=g)
-    states = torch.cat([hist, tool], 2)  # (B, 3, N, 3)
     mask = torch.ones(B, N, dtype=torch.bool, device="cuda")
     tool_mask = torch.zeros_like(mask)
     tool_mask[:, n_obj] = True
+    return torch.cat([hist, tool], 2), mask, tool_mask
+
+
+def gnn_inputs(B: int, n_obj: int, n_pad: int, max_nR: int, topk: int,
+               adj: float, connect_all: bool):
+    """One chunk of the rollout's GNN inputs (`chunk_states`); edges by the
+    port's `construct_edge_indices_batch` on the last frame, at the GNN's
+    padded width (the edges phase checks that graph against its plain
+    version)."""
+    from gsdx_torch.graph.edges import construct_edge_indices_batch
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    states, mask, tool_mask = chunk_states(B, n_obj, g)
+    N = n_obj + 1
     recv, send = construct_edge_indices_batch(states[:, -1], adj, mask, tool_mask,
                                               n_obj=n_obj, topk=topk, max_nR=max_nR,
-                                              connect_all=connect_all)
-    e_pad = -(-max_nR // 8) * 8
-    fill = torch.full((B, e_pad - max_nR), -1, dtype=torch.int32, device="cuda")
-    recv, send = torch.cat([recv, fill], 1), torch.cat([send, fill], 1)
+                                              connect_all=connect_all,
+                                              out_width=-(-max_nR // 8) * 8)
     attrs = torch.zeros(B, n_pad, 2, device="cuda")
     attrs[:, :n_obj, 0] = 1
     attrs[:, n_obj:N, 1] = 1
@@ -1179,7 +1193,80 @@ def gnn_inputs(B: int, n_obj: int, n_pad: int, max_nR: int, topk: int,
     st[:, :N] = states.transpose(1, 2).reshape(B, N, 9)
     gi = torch.zeros(B, n_pad, 1, device="cuda")
     gi[:, :n_obj] = 1
-    return [attrs, action, st, gi, recv.contiguous(), send.contiguous()]
+    return [attrs, action, st, gi, recv, send]
+
+
+def edges_case(shape: str, states, radius, mask, tool_mask, floor_ms: float, **kw) -> dict:
+    """The radius-graph kernel against its plain version on the same CUDA
+    inputs, slot for slot (one launch a call); then its call's median ms
+    and device ms, the plain version's, and the bound: the bytes it must
+    move (states, masks, radii, both outputs) or ``floor_ms``, an empty
+    kernel's device time, whichever is longer."""
+    from gsdx_torch.graph import edges as E
+    from gsdx_torch.kernels import edges as K
+
+    def run():
+        return E.construct_edge_indices_batch(states, radius, mask, tool_mask, **kw)
+
+    def plain():
+        return E.construct_edge_indices_batch_plain(states, radius, mask, tool_mask, **kw)
+
+    before = K.LAUNCHES["edges"]
+    got = run()
+    if K.LAUNCHES["edges"] != before + 1:
+        raise AssertionError(f"edges at {shape}: {K.LAUNCHES['edges'] - before} launches")
+    want = plain()
+    differ = int(((got[0] != want[0]) | (got[1] != want[1])).sum())
+    if differ or got[0].shape != want[0].shape:
+        raise AssertionError(f"edges kernel differs from its plain version at {shape}: "
+                             f"{differ} slots")
+    B, N, _ = states.shape
+    width = got[0].shape[1]
+    moved = (B * N * 3 * 4 + 2 * B * N + (radius.numel() * 4 if torch.is_tensor(radius) else 0)
+             + 2 * B * width * 4)
+    bytes_ms = moved / PEAK_BYTES_S * 1e3
+    row = {"name": "edges", "shape": shape, "B": B, "N": N, "topk": kw["topk"],
+           "max_nR": kw["max_nR"], "width": width,
+           "edges_mean": float((got[0] >= 0).sum(1).float().mean()),
+           "radius": "per graph" if torch.is_tensor(radius) else radius,
+           "equal": True, "slots_differing": 0, "max_abs_err": 0.0,
+           "ms": cuda_ms(run, reps=50), "device_ms": kernel_device_ms(run, r"\bedges_kernel"),
+           "back_to_back_ms": cuda_ms_back_to_back(run, reps=50),
+           "plain_ms": cuda_ms(plain, reps=20), "plain_device_ms": kernel_device_ms(plain, r"."),
+           "bytes_bound_ms": bytes_ms, "latency_floor_ms": floor_ms,
+           "bound_ms": max(bytes_ms, floor_ms),
+           "bound_by": "launch" if floor_ms > bytes_ms else "bytes", "bound_bytes": moved,
+           "library_ms": None}
+    emit(dict(row, phase="edges"))
+    return row
+
+
+def phase_edges() -> tuple[dict, list[dict]]:
+    """The push step's radius graph (`csrc/edges.cu`) against its plain
+    version, slot for slot, at its callers' shapes: the rope planning chunk
+    (125 graphs of 101 particles, top-5, 500 relations in 504 slots) and the
+    cloth one (125 x 151, top-6, 1,200, every object-tool pair), on the
+    histories the GNN phase gives kernel #3 (`chunk_states`), and
+    cloth.train's batch (64 x 151, a radius a graph, part of each object
+    masked out). Returns (the rope chunk's row, every row)."""
+    from gsdx_torch.kernels import probes as PR
+
+    rng = np.random.default_rng(0)
+    floor_ms = kernel_device_ms(lambda: PR.empty_launch(0), r"empty_kernel")
+    rows = []
+    for shape, B, n_obj, radius, kw in (
+            ("rope_chunk", 125, 100, 0.08, dict(topk=5, max_nR=500, out_width=504)),
+            ("cloth_chunk", 125, 150, 0.075, dict(topk=6, max_nR=1200, connect_all=True)),
+            ("cloth_train", 64, 150, None, dict(topk=6, max_nR=1200, connect_all=True))):
+        states, mask, tool_mask = chunk_states(B, n_obj, torch.Generator(device="cuda")
+                                               .manual_seed(0))
+        if radius is None:  # the training batch's draws
+            radius = torch.as_tensor(rng.uniform(0.07, 0.08, B).astype(np.float32),
+                                     device="cuda")
+            mask[:, :n_obj] = torch.as_tensor(rng.random((B, n_obj)) < 0.85, device="cuda")
+        rows.append(edges_case(shape, states[:, -1], radius, mask, tool_mask, floor_ms,
+                               n_obj=n_obj, **kw))
+    return rows[0], rows
 
 
 def forward_kernel_ms(packed, ins, pstep: int, calls: int = 5) -> dict:
@@ -1434,6 +1521,18 @@ def phase_gnn_kernels() -> dict:
     return out
 
 
+def edges_table_row(main: dict, rows: list[dict], plan_row: dict) -> dict:
+    """The kernel table's row of the radius-graph kernel: the rope chunk's
+    numbers, the plan phase's launches, and every shape's."""
+    shape_keys = ("B", "N", "topk", "max_nR", "width", "edges_mean", "ms", "device_ms",
+                  "plain_ms", "plain_device_ms", "bound_ms", "bound_by")
+    return {"name": "edges", "route": "cuda", "source": "gsdx_torch/csrc/edges.cu",
+            "replaces": "gsdx/graph/edges.py:130", "launches": plan_row["launches"]["edges"],
+            **{k: main[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "latency_floor_ms")},
+            "shapes": {r["shape"]: {k: r[k] for k in shape_keys} for r in rows}}
+
+
 def phase_rasterize(card: str) -> list[dict]:
     """fwd+bwd of `rasterize` at 720p (3 colour channels, binning included)."""
     from gsdx_torch.render.rasterize import RasterizeConfig, rasterize, resolve_binning
@@ -1640,10 +1739,11 @@ def phase_plan(card: str) -> dict:
         if v <= 0:
             raise AssertionError(f"GNN kernel {k} never launched in the plan phase")
     # every product of depth F on the tensor-core GEMM, the three node-input
-    # layers on gnn_linear, the receiver segments once and a message a round
+    # layers on gnn_linear, the receiver segments once and a message a round;
+    # the push step's radius graph in one launch
     forwards = launches["gnn_forward"]
     per_forward = {"gnn_gemm": 15, "gnn_linear": 3, "gnn_edge_first": 1, "gnn_segments": 1,
-                   "gnn_message": 3}
+                   "gnn_message": 3, "edges": 1}
     if any(launches[k] != n * forwards for k, n in per_forward.items()):
         raise AssertionError(f"plan phase launches {launches}: expected {per_forward} "
                              "a forward")
@@ -3478,6 +3578,7 @@ def run() -> int:
     card = info["nvidia_smi"]
     emit(timed("build", phase_build))
     rows = timed("kernels", phase_kernels, info["max_sm_mhz"])
+    edges_main, edges_rows = timed("edges", phase_edges)
     gnn_rows = timed("gnn_kernels", phase_gnn_kernels)
     _, probe_rows = timed("probes", phase_probes, info["max_sm_mhz"])
     fps_main, _ = timed("fps", phase_fps)
@@ -3583,6 +3684,7 @@ def run() -> int:
             **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms", "device_ms", "latency_floor_ms", "B", "P", "D",
                                  "n")}})
+    table.append(edges_table_row(edges_main, edges_rows, plan_row))
     emit({"phase": "processes", "stopped": stop_children()})
     print(info["nvidia_smi"], flush=True)
     emit({"kernels": table})

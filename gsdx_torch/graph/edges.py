@@ -12,14 +12,21 @@ Semantics kept from gsdx, integer for integer:
     them) into a fixed budget of max_nR slots, first max_nR kept, so each
     receiver's slots form one consecutive range; -1 on empty slots.
 
-The packing is a cumulative sum over the flattened adjacency and a scatter
-into a (B, max_nR) buffer: no `nonzero`, no host sync.
+`construct_edge_indices_batch` builds the graph of CUDA states in one
+launch of the hand-written kernel of `kernels/edges.py` (float32 states of
+at most 256 particles a graph, top-k at most 32; it refuses any other
+input). On the CPU it runs the plain version
+`construct_edge_indices_batch_plain`: distances, a stable sort for the
+top-k, a cumulative sum over the flattened adjacency and a scatter into
+the slots, with no `nonzero` and no host sync. The two give the same
+integers.
 """
 
 from __future__ import annotations
 
 import torch
 
+from gsdx_torch.kernels import edges as _kernel
 from gsdx_torch.utils.profiling import span
 
 _BIG = 1e10
@@ -58,20 +65,20 @@ def _adjacency(states, adj_thresh, mask, tool_mask, n_obj: int, topk: int,
     return adj
 
 
-def _pack(adj, max_nR: int):
-    """Row-major set bits of (B, N, N) ``adj`` into (B, max_nR) receiver and
-    sender indices (int32, -1 on empty slots)."""
+def _pack(adj, max_nR: int, width: int):
+    """Row-major set bits of (B, N, N) ``adj`` into the first max_nR of
+    (B, width) receiver and sender indices (int32, -1 on empty slots)."""
     B, N, _ = adj.shape
     flat = adj.reshape(B, N * N)
     pos = torch.cumsum(flat.to(torch.int64), dim=1) - 1
     keep = flat & (pos < max_nR)
-    slot = torch.where(keep, pos, torch.full_like(pos, max_nR))  # spare slot
+    slot = torch.where(keep, pos, torch.full_like(pos, width))  # spare slot
     cell = torch.arange(N * N, device=adj.device).expand(B, -1)
-    recv = torch.full((B, max_nR + 1), -1, dtype=torch.int64, device=adj.device)
+    recv = torch.full((B, width + 1), -1, dtype=torch.int64, device=adj.device)
     send = torch.full_like(recv, -1)
     recv.scatter_(1, slot, torch.where(keep, cell // N, -1))
     send.scatter_(1, slot, torch.where(keep, cell % N, -1))
-    return recv[:, :max_nR].to(torch.int32), send[:, :max_nR].to(torch.int32)
+    return recv[:, :width].to(torch.int32), send[:, :width].to(torch.int32)
 
 
 def _one_hot(idx, N: int):
@@ -80,15 +87,36 @@ def _one_hot(idx, N: int):
     return torch.where(valid, oh, torch.zeros_like(oh))
 
 
+def construct_edge_indices_batch_plain(states, adj_thresh, mask, tool_mask, n_obj: int,
+                                       topk: int = 10, max_nR: int = 500,
+                                       connect_all: bool = False, out_width=None):
+    """`construct_edge_indices_batch` in plain PyTorch, on any device: the
+    kernel's twin."""
+    adj = _adjacency(states, adj_thresh, mask.bool(), tool_mask.bool(), n_obj, topk,
+                     connect_all)
+    return _pack(adj, max_nR, max_nR if out_width is None else out_width)
+
+
 def construct_edge_indices_batch(states, adj_thresh, mask, tool_mask, n_obj: int,
                                  topk: int = 10, max_nR: int = 500,
-                                 connect_all: bool = False):
-    """(recv_idx, send_idx) int32 (B, max_nR), -1 on unused slots.
-    ``adj_thresh`` is a scalar or (B,). A span ``graph.edges``."""
+                                 connect_all: bool = False, out_width=None):
+    """(recv_idx, send_idx) int32 (B, out_width), the edges in the first
+    max_nR slots and -1 on unused ones; ``out_width`` (default max_nR, at
+    least max_nR) lets a caller ask for its padded width directly.
+    ``adj_thresh`` is a scalar or (B,). CUDA states go to the kernel, which
+    raises ValueError for inputs it does not take; a span ``graph.edges``
+    (host time only: the kernel's device time is read from the profiler's
+    trace)."""
+    width = max_nR if out_width is None else out_width
+    if not 0 <= max_nR <= width:
+        raise ValueError(f"max_nR {max_nR} and out_width {out_width}: the slots need "
+                         "0 <= max_nR <= out_width")
     with span("graph.edges"):
-        adj = _adjacency(states, adj_thresh, mask.bool(), tool_mask.bool(), n_obj,
-                         topk, connect_all)
-        return _pack(adj, max_nR)
+        if states.is_cuda:
+            return _kernel.edge_indices(states, adj_thresh, mask, tool_mask, n_obj, topk,
+                                        max_nR, connect_all, width)
+        return construct_edge_indices_batch_plain(states, adj_thresh, mask, tool_mask,
+                                                  n_obj, topk, max_nR, connect_all, width)
 
 
 def construct_edges_batch(states, adj_thresh, mask, tool_mask, n_obj: int,

@@ -55,9 +55,10 @@ N_PAD_CHOICES = (128, 256)
 
 # Launches counted by the wrappers where they launch: one "gnn_forward" per
 # fused forward, and each of its five kernels per launch ("gnn_linear" the
-# node-input layers, "gnn_gemm" every product of depth F).
+# node-input layers, "gnn_gemm" every product of depth F); "edges" the push
+# step's radius graph (`kernels/edges.py`).
 LAUNCHES = {"gnn_forward": 0, "gnn_linear": 0, "gnn_gemm": 0,
-            "gnn_edge_first": 0, "gnn_segments": 0, "gnn_message": 0}
+            "gnn_edge_first": 0, "gnn_segments": 0, "gnn_message": 0, "edges": 0}
 
 # The K-major weight copies hold a multiple of GEMM_BN rows: the narrow GEMM
 # tile's width (its wide tile, 256, is taken only where N is a multiple).

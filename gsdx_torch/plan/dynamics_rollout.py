@@ -151,15 +151,11 @@ def make_batched_rollout(model: DynamicsPredictor, spec: RolloutSpec):
                     pred, _ = model(states, attrs, Rr, Rs, p_instance, action)
                     return pred
                 recv, send = construct_edge_indices_batch(
-                    states[:, -1], spec.adj_thresh, state_mask, tool_mask, **edge_kw)
+                    states[:, -1], spec.adj_thresh, state_mask, tool_mask, out_width=e_pad,
+                    **edge_kw)
                 with span("rollout.pad"):
-                    if e_pad > spec.max_nR:
-                        fill = torch.full((Bc, e_pad - spec.max_nR), -1,
-                                          dtype=torch.int32, device=dev)
-                        recv, send = torch.cat([recv, fill], 1), torch.cat([send, fill], 1)
                     st_pad = torch.zeros((Bc, n_pad, spec.n_his * 3), device=dev)
                     st_pad[:, :N] = states.transpose(1, 2).reshape(Bc, N, spec.n_his * 3)
-                    recv, send = recv.contiguous(), send.contiguous()
                 with span("rollout.gnn"):
                     motion = gnn(packed, attrs_pad, action_pad, st_pad, g_pad, recv, send,
                                  pstep=cfg.pstep)[:, :n_obj, :3]
