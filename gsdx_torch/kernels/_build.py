@@ -9,6 +9,7 @@ anew. Nothing is built when a module is imported.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -47,6 +48,7 @@ class CudaLibrary:
         self.source = CSRC / source
         self.functions = functions
         self.error_string = error_string
+        self.launchers: list[Launcher] = []
         self._lib = None
 
     def path(self) -> Path:
@@ -94,21 +96,55 @@ class CudaLibrary:
             msg = getattr(self.load(), self.error_string)(err).decode()
             raise RuntimeError(f"{what} kernel launch failed: {msg} ({err})")
 
+    def record(self, fn: str, fields: tuple[str, ...]) -> dict:
+        """The ints that the exported ``fn(int *out)`` writes (the library's
+        record of its last accepted launch), by field name."""
+        out = (ctypes.c_int * len(fields))()
+        getattr(self.load(), fn)(ctypes.cast(out, PTR))
+        return dict(zip(fields, out))
+
+    @contextlib.contextmanager
+    def using(self, other: CudaLibrary):
+        """Inside the block, every `Launcher` of this library, `check` and
+        `record` call ``other``, another build of the same functions (a
+        variant of the source); the shipped build is back when the block
+        ends, also when it raises."""
+        shipped = self._lib
+        try:
+            self._lib = other.load()
+            for launcher in self.launchers:
+                launcher.fn = None
+            yield
+        finally:
+            self._lib = shipped
+            for launcher in self.launchers:
+                launcher.fn = None
+
+
+def ptr(t: torch.Tensor | None):
+    """A tensor's device address, or None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
+
 
 class Launcher:
     """One exported C function of a `CudaLibrary`, called with as little
     host work as ctypes allows: the function is resolved once, at the first
-    call, and the stream argument is the raw handle of PyTorch's current
-    stream on the device (`torch._C._cuda_getCurrentRawStream`), taken
-    without building a `torch.cuda.Stream`. The caller checks the tensors
-    and calls the instance with the device index, then the pointers and
-    sizes; the handle goes last. Raises if the launch returned a CUDA error."""
+    call (and again after `CudaLibrary.using`), and the stream argument is
+    the raw handle of PyTorch's current stream on the device
+    (`torch._C._cuda_getCurrentRawStream`), taken without building a
+    `torch.cuda.Stream`. The caller checks the tensors and calls the
+    instance with the device index, then the pointers and sizes; the handle
+    goes last. Raises if the launch returned a CUDA error; otherwise adds
+    one to ``launches[key]`` where a counter is given."""
 
-    __slots__ = ("library", "name", "what", "fn", "stream")
+    __slots__ = ("library", "name", "what", "launches", "key", "fn", "stream")
 
-    def __init__(self, library: CudaLibrary, name: str, what: str):
+    def __init__(self, library: CudaLibrary, name: str, what: str,
+                 launches: dict | None = None, key: str | None = None):
         self.library, self.name, self.what = library, name, what
+        self.launches, self.key = launches, key
         self.fn = self.stream = None
+        library.launchers.append(self)
 
     def __call__(self, device_index: int, *args) -> None:
         if self.fn is None:  # the CPU build of torch has no raw-stream getter
@@ -117,3 +153,5 @@ class Launcher:
         err = self.fn(*args, self.stream(device_index))
         if err:
             self.library.check(err, self.what)
+        if self.launches is not None:
+            self.launches[self.key] += 1

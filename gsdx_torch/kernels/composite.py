@@ -38,13 +38,12 @@ refused before any launch.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 import torch.utils.checkpoint
 
-from gsdx_torch.kernels._build import I32, PTR, CudaLibrary
+from gsdx_torch.kernels._build import I32, PTR, CudaLibrary, Launcher, ptr
 
 FEAT_DIM = 16
 ALPHA_MIN = 1.0 / 255.0
@@ -55,7 +54,7 @@ LOG_T_STOP = -9.210340371976182
 ACCUM_DIM = 4  # default accumulated channels: r, g, b, depth
 SORT_SENTINEL = 1e30  # presort key of the columns past a tile's count
 
-# Kernel launches per variant, counted by the wrappers where they launch.
+# Kernel launches per variant, each counted by its variant's `Launcher`.
 LAUNCHES = {"fwd": 0, "fwd_presort": 0, "bwd": 0, "bwd_presort": 0}
 
 # What the CUDA kernels take (see csrc/composite.cu).
@@ -298,14 +297,18 @@ LIBRARY = CudaLibrary(
      "gsdx_composite_bwd": [PTR] * 9 + [I32] * 8 + [PTR],
      "gsdx_composite_last_launch": [PTR]},
     error_string="gsdx_cuda_error_string")
+_FWD = Launcher(LIBRARY, "gsdx_composite_fwd", "composite_fwd", LAUNCHES, "fwd")
+_FWD_PRESORT = Launcher(LIBRARY, "gsdx_composite_fwd", "composite_fwd", LAUNCHES,
+                        "fwd_presort")
+_BWD = Launcher(LIBRARY, "gsdx_composite_bwd", "composite_bwd", LAUNCHES, "bwd")
+_BWD_PRESORT = Launcher(LIBRARY, "gsdx_composite_bwd", "composite_bwd", LAUNCHES,
+                        "bwd_presort")
 
 
 def last_launch() -> dict:
     """Cluster size, blocks and threads a block of the library's last
     accepted compositor launch, as the C side launched it."""
-    out = (ctypes.c_int * 3)()
-    LIBRARY.load().gsdx_composite_last_launch(ctypes.cast(out, ctypes.c_void_p))
-    return {"cluster": out[0], "blocks": out[1], "threads": out[2]}
+    return LIBRARY.record("gsdx_composite_last_launch", ("cluster", "blocks", "threads"))
 
 
 def _check_tile_ids(tile_ids, T, tiles_x, tiles_y, device):
@@ -377,7 +380,6 @@ def composite_fwd(tile_feats: torch.Tensor, counts: torch.Tensor, *,
                   tile_feats=tile_feats, counts=counts)
     if tile_ids is not None:
         _check_tile_ids(tile_ids, T, tiles_x, tiles_y, tile_feats.device)
-    lib = LIBRARY.load()
     P = tile_h * tile_w
     accum = torch.empty((T, n_accum, P), device=tile_feats.device)
     logt = torch.empty((T, 1, P), device=tile_feats.device)
@@ -386,17 +388,10 @@ def composite_fwd(tile_feats: torch.Tensor, counts: torch.Tensor, *,
     if presort:
         rank = torch.empty((T, 1, K), device=tile_feats.device)
         sorted_feats = torch.empty_like(tile_feats)
-    stream = torch.cuda.current_stream(tile_feats.device).cuda_stream
-    err = lib.gsdx_composite_fwd(
-        tile_feats.data_ptr(), counts.data_ptr(),
-        tile_ids.data_ptr() if tile_ids is not None else None, accum.data_ptr(),
-        logt.data_ptr(), nproc.data_ptr(),
-        rank.data_ptr() if presort else None,
-        sorted_feats.data_ptr() if presort else None,
-        T, K, tiles_x, tile_h, tile_w, n_accum, sub_chunk, int(presort),
-        int(early_stop), stream)
-    LIBRARY.check(err, "composite_fwd")
-    LAUNCHES["fwd_presort" if presort else "fwd"] += 1
+    (_FWD_PRESORT if presort else _FWD)(
+        tile_feats.device.index, tile_feats.data_ptr(), counts.data_ptr(), ptr(tile_ids),
+        accum.data_ptr(), logt.data_ptr(), nproc.data_ptr(), ptr(rank), ptr(sorted_feats),
+        T, K, tiles_x, tile_h, tile_w, n_accum, sub_chunk, int(presort), int(early_stop))
     return accum, logt, nproc, rank, sorted_feats
 
 
@@ -432,17 +427,10 @@ def composite_bwd(feats: torch.Tensor, counts: torch.Tensor,
     _check_inputs(tile_h, tile_w, n_accum, sub_chunk, K, **tensors)
     if tile_ids is not None:
         _check_tile_ids(tile_ids, T, tiles_x, tiles_y, feats.device)
-    lib = LIBRARY.load()
     grad = torch.empty_like(feats)
-    stream = torch.cuda.current_stream(feats.device).cuda_stream
-    err = lib.gsdx_composite_bwd(
-        feats.data_ptr(), counts.data_ptr(),
-        tile_ids.data_ptr() if tile_ids is not None else None,
-        nproc.data_ptr(), logt.data_ptr(),
-        g_accum.data_ptr(), g_logt.data_ptr(),
-        rank.data_ptr() if rank is not None else None, grad.data_ptr(),
-        T, K, tiles_x, tile_h, tile_w, n_accum, sub_chunk,
-        int(rank is not None), stream)
-    LIBRARY.check(err, "composite_bwd")
-    LAUNCHES["bwd_presort" if rank is not None else "bwd"] += 1
+    (_BWD if rank is None else _BWD_PRESORT)(
+        feats.device.index, feats.data_ptr(), counts.data_ptr(), ptr(tile_ids),
+        nproc.data_ptr(), logt.data_ptr(), g_accum.data_ptr(), g_logt.data_ptr(),
+        ptr(rank), grad.data_ptr(), T, K, tiles_x, tile_h, tile_w, n_accum, sub_chunk,
+        int(rank is not None))
     return grad

@@ -20,7 +20,7 @@ import numbers
 
 import torch
 
-from gsdx_torch.kernels._build import F32, I32, PTR, CudaLibrary, Launcher
+from gsdx_torch.kernels._build import F32, I32, PTR, CudaLibrary, Launcher, ptr
 from gsdx_torch.kernels.gnn_forward import LAUNCHES  # the push step's counters
 
 MAX_N = 256  # particles a graph: a block holds a graph's rows in shared memory
@@ -31,7 +31,7 @@ LIBRARY = CudaLibrary(
     {"gsdx_edges": [PTR, ctypes.c_longlong, PTR, PTR, PTR, I32, F32, PTR, PTR]
      + [I32] * 7 + [PTR]},
     error_string="gsdx_edges_error_string")
-_EDGES = Launcher(LIBRARY, "gsdx_edges", "edges")
+_EDGES = Launcher(LIBRARY, "gsdx_edges", "edges", LAUNCHES, "edges")
 
 
 def check(states: torch.Tensor, n_obj: int, topk: int) -> None:
@@ -85,8 +85,7 @@ def edge_indices(states, adj_thresh, mask, tool_mask, n_obj: int, topk: int, max
     if B:
         n_eff = min(n_obj, N)
         _EDGES(dev.index, states.data_ptr(), states.stride(0), masks[0].data_ptr(),
-               masks[1].data_ptr(), None if thresh is None else thresh.data_ptr(), t_stride,
+               masks[1].data_ptr(), ptr(thresh), t_stride,
                t_value, recv.data_ptr(), send.data_ptr(), B, N, n_eff, min(topk, n_eff),
                max_nR, width, int(bool(connect_all)))
-        LAUNCHES["edges"] += 1
     return recv, send

@@ -30,12 +30,11 @@ XLA's CPU backend computes ``jnp.sum((p - c) ** 2, -1)``.
 
 from __future__ import annotations
 
-import ctypes
 import operator
 
 import torch
 
-from gsdx_torch.kernels._build import F32, I32, PTR, CudaLibrary, Launcher
+from gsdx_torch.kernels._build import F32, I32, PTR, CudaLibrary, Launcher, ptr
 from gsdx_torch.utils.profiling import span
 
 _INF = 1e10
@@ -43,7 +42,7 @@ MAX_P = 65536  # points a row: 8 blocks of 512 threads x 16 points
 MAX_D = 4  # coordinates a point (the planner's action grid is 4-D)
 MAX_ROWS = 65535  # rows a launch (the grid's y dimension)
 
-# Kernel launches, counted by the wrappers where they launch.
+# Kernel launches, each counted by its `Launcher`.
 LAUNCHES = {"fps": 0, "fps_radius": 0}
 
 _POINTS = [PTR, PTR, I32, PTR, I32]  # points, start and its value, valid and its stride
@@ -54,8 +53,8 @@ LIBRARY = CudaLibrary(
      "gsdx_fps_floor": [PTR, PTR] + [I32] * 4 + [PTR],
      "gsdx_fps_last_launch": [PTR]},
     error_string="gsdx_fps_error_string")
-_FPS = Launcher(LIBRARY, "gsdx_fps", "farthest_point_sampling")
-_FPS_RADIUS = Launcher(LIBRARY, "gsdx_fps_radius", "fps_rad_idx")
+_FPS = Launcher(LIBRARY, "gsdx_fps", "farthest_point_sampling", LAUNCHES, "fps")
+_FPS_RADIUS = Launcher(LIBRARY, "gsdx_fps_radius", "fps_rad_idx", LAUNCHES, "fps_radius")
 _FLOOR = Launcher(LIBRARY, "gsdx_fps_floor", "fps_latency_floor")
 
 
@@ -67,9 +66,8 @@ def reset_launches() -> None:
 def last_launch() -> dict:
     """Cluster size, blocks, threads a block and points a thread of the
     library's last accepted launch, as the C side launched it."""
-    out = (ctypes.c_int * 4)()
-    LIBRARY.load().gsdx_fps_last_launch(ctypes.cast(out, ctypes.c_void_p))
-    return {"cluster": out[0], "blocks": out[1], "threads": out[2], "points_a_thread": out[3]}
+    return LIBRARY.record("gsdx_fps_last_launch",
+                          ("cluster", "blocks", "threads", "points_a_thread"))
 
 
 # --------------------------------------------------------------------------
@@ -238,10 +236,6 @@ def _per_row(x, cast):
     return None, cast(x)
 
 
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
 def _launch(points, n, start_idx, valid, radius=None, radius_mode=False):
     """The kernel on CUDA tensors (checked): (idx (B, n) int64, keep (B, n)
     bool or None)."""
@@ -253,18 +247,15 @@ def _launch(points, n, start_idx, valid, radius=None, radius_mode=False):
     if B == 0 or n == 0:
         return idx, keep
     start_t, start_v = _per_row(start_idx, operator.index)
-    vp = valid_c.data_ptr() if valid_c is not None else None
     vs = P if valid_c is not None and valid_c.dim() == 2 else 0
     dev = points.device.index
-    args = (points.data_ptr(), _ptr(start_t), start_v, vp, vs)
+    args = (points.data_ptr(), ptr(start_t), start_v, ptr(valid_c), vs)
     if radius_mode:
         radius_t, radius_v = _per_row(radius, float)
-        _FPS_RADIUS(dev, *args, _ptr(radius_t), radius_v, idx.data_ptr(), keep.data_ptr(),
+        _FPS_RADIUS(dev, *args, ptr(radius_t), radius_v, idx.data_ptr(), keep.data_ptr(),
                     B, P, D, n)
-        LAUNCHES["fps_radius"] += 1
     else:
         _FPS(dev, *args, idx.data_ptr(), B, P, D, n)
-        LAUNCHES["fps"] += 1
     return idx, keep
 
 

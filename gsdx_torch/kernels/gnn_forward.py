@@ -41,22 +41,21 @@ history + motion + action).
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from gsdx_torch.kernels._build import I32, PTR, CudaLibrary
+from gsdx_torch.kernels._build import I32, PTR, CudaLibrary, Launcher, ptr
 from gsdx_torch.utils.profiling import host_read, span
 
 # Node slots the kernels are padded to (objects + tool), as in gsdx.
 N_PAD_CHOICES = (128, 256)
 
-# Launches counted by the wrappers where they launch: one "gnn_forward" per
-# fused forward, and each of its five kernels per launch ("gnn_linear" the
-# node-input layers, "gnn_gemm" every product of depth F); "edges" the push
-# step's radius graph (`kernels/edges.py`).
+# Launches: one "gnn_forward" per fused forward, and each of its five
+# kernels per launch, counted by its `Launcher` ("gnn_linear" the node-input
+# layers, "gnn_gemm" every product of depth F); "edges" the push step's
+# radius graph (`kernels/edges.py`).
 LAUNCHES = {"gnn_forward": 0, "gnn_linear": 0, "gnn_gemm": 0,
             "gnn_edge_first": 0, "gnn_segments": 0, "gnn_message": 0, "edges": 0}
 
@@ -373,6 +372,12 @@ GEMM_LIBRARY = CudaLibrary(
     {"gsdx_gnn_gemm": [PTR, PTR, I32, I32, I32, PTR, PTR, PTR, PTR, PTR, I32, PTR],
      "gsdx_gnn_gemm_last_launch": [PTR]},
     error_string="gsdx_gnn_gemm_error_string")
+_LINEAR = Launcher(LIBRARY, "gsdx_gnn_linear", "gnn_linear", LAUNCHES, "gnn_linear")
+_EDGE_FIRST = Launcher(LIBRARY, "gsdx_gnn_edge_first", "gnn_edge_first", LAUNCHES,
+                       "gnn_edge_first")
+_SEGMENTS = Launcher(LIBRARY, "gsdx_gnn_segments", "gnn_segments", LAUNCHES, "gnn_segments")
+_MESSAGE = Launcher(LIBRARY, "gsdx_gnn_message", "gnn_message", LAUNCHES, "gnn_message")
+_GEMM = Launcher(GEMM_LIBRARY, "gsdx_gnn_gemm", "gnn_gemm", LAUNCHES, "gnn_gemm")
 
 GEMM_LAUNCH_FIELDS = ("grid", "tiles", "block_m", "block_n", "stages", "sms", "tma_store",
                       "persistent")
@@ -383,13 +388,7 @@ def gemm_last_launch() -> dict:
     grid, output tiles, the tile's rows and columns, ring stages, the
     device's SM count, and whether the epilogue stored by TMA and the grid
     was persistent (1 or 0)."""
-    out = (ctypes.c_int * len(GEMM_LAUNCH_FIELDS))()
-    GEMM_LIBRARY.load().gsdx_gnn_gemm_last_launch(ctypes.cast(out, ctypes.c_void_p))
-    return dict(zip(GEMM_LAUNCH_FIELDS, out))
-
-
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else t.data_ptr()
+    return GEMM_LIBRARY.record("gsdx_gnn_gemm_last_launch", GEMM_LAUNCH_FIELDS)
 
 
 def gnn_gemm(x: torch.Tensor, wt: torch.Tensor, n: int | None = None, *,
@@ -422,11 +421,8 @@ def gnn_gemm(x: torch.Tensor, wt: torch.Tensor, n: int | None = None, *,
         raise ValueError("gnn_gemm: ask for an f32 or a bf16 output")
     y = torch.empty((M, n), dtype=torch.float32, device=x.device) if f32 else None
     yb = torch.empty((M, n), dtype=torch.bfloat16, device=x.device) if bf16 else None
-    err = GEMM_LIBRARY.load().gsdx_gnn_gemm(
-        x.data_ptr(), wt.data_ptr(), M, n, K, _ptr(bias), _ptr(r1), _ptr(r2),
-        _ptr(y), _ptr(yb), int(relu), torch.cuda.current_stream(x.device).cuda_stream)
-    GEMM_LIBRARY.check(err, "gnn_gemm")
-    LAUNCHES["gnn_gemm"] += 1
+    _GEMM(x.device.index, x.data_ptr(), wt.data_ptr(), M, n, K, ptr(bias), ptr(r1), ptr(r2),
+          ptr(y), ptr(yb), int(relu))
     return y, yb
 
 
@@ -444,11 +440,8 @@ def gnn_segments(recv_idx: torch.Tensor, n_pad: int):
     B, E = recv_idx.shape
     seg_off = torch.empty((B, n_pad + 1), dtype=torch.int32, device=recv_idx.device)
     seg_slot = torch.empty((B, E), dtype=torch.int32, device=recv_idx.device)
-    err = LIBRARY.load().gsdx_gnn_segments(
-        recv_idx.data_ptr(), seg_off.data_ptr(), seg_slot.data_ptr(), B, E, n_pad,
-        torch.cuda.current_stream(recv_idx.device).cuda_stream)
-    LIBRARY.check(err, "gnn_segments")
-    LAUNCHES["gnn_segments"] += 1
+    _SEGMENTS(recv_idx.device.index, recv_idx.data_ptr(), seg_off.data_ptr(),
+              seg_slot.data_ptr(), B, E, n_pad)
     return seg_off, seg_slot
 
 
@@ -474,12 +467,8 @@ def gnn_message(rel_pre: torch.Tensor, ew: torch.Tensor, seg_off: torch.Tensor,
             raise ValueError(f"gnn_message: {name} must be a contiguous {dtype} {shape} "
                              f"tensor on {ew.device}, got {t.dtype} {tuple(t.shape)}")
     agg = torch.empty((B * n_pad, F), dtype=torch.bfloat16, device=ew.device)
-    err = LIBRARY.load().gsdx_gnn_message(
-        rel_pre.data_ptr(), ew.data_ptr(), seg_off.data_ptr(), seg_slot.data_ptr(),
-        send_idx.data_ptr(), agg.data_ptr(), B, E, n_pad, F,
-        torch.cuda.current_stream(ew.device).cuda_stream)
-    LIBRARY.check(err, "gnn_message")
-    LAUNCHES["gnn_message"] += 1
+    _MESSAGE(ew.device.index, rel_pre.data_ptr(), ew.data_ptr(), seg_off.data_ptr(),
+             seg_slot.data_ptr(), send_idx.data_ptr(), agg.data_ptr(), B, E, n_pad, F)
     return agg
 
 
@@ -554,8 +543,6 @@ def _launch_forward(packed: PackedGNN, attrs, action, state_t, g, recv_idx,
                         g=g, recv_idx=recv_idx, send_idx=send_idx)
     recv_idx, send_idx = recv_idx.contiguous(), send_idx.contiguous()
     g = g.contiguous()
-    lib = LIBRARY.load()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     F = packed.w2r.shape[0]
     Mn, Me = B * n_pad, B * E
     bias = packed.biases
@@ -565,11 +552,8 @@ def _launch_forward(packed: PackedGNN, attrs, action, state_t, g, recv_idx,
 
     def linear(x, ldx, w, M, N, K, *, y=None, yb=None, b=None, r=None, relu=False):
         """A node-input layer (K <= 32) on the CUDA cores."""
-        err = lib.gsdx_gnn_linear(
-            x.data_ptr(), ldx, w.data_ptr(), int(w.dtype == torch.float32), _ptr(b),
-            _ptr(r), _ptr(y), _ptr(yb), M, N, K, int(relu), stream)
-        LIBRARY.check(err, "gnn_linear")
-        LAUNCHES["gnn_linear"] += 1
+        _LINEAR(dev.index, x.data_ptr(), ldx, w.data_ptr(), int(w.dtype == torch.float32),
+                ptr(b), ptr(r), ptr(y), ptr(yb), M, N, K, int(relu))
 
     # node inputs side by side: [state | attrs | action], (Mn, nd + 5), so
     # that the first layers are products with packed.w_nrs and w_pa
@@ -589,12 +573,9 @@ def _launch_forward(packed: PackedGNN, attrs, action, state_t, g, recv_idx,
     node_pre, _ = gnn_gemm(enc_p16, packed.wt_p0, bias=bias[7])
 
     h1 = empty(Me, F, dtype=torch.bfloat16)
-    err = lib.gsdx_gnn_edge_first(nrs.data_ptr(), g.data_ptr(), recv_idx.data_ptr(),
-                                  send_idx.data_ptr(), packed.w1r_g.data_ptr(),
-                                  bias[0].data_ptr(), h1.data_ptr(), B, E, n_pad,
-                                  F, stream)
-    LIBRARY.check(err, "gnn_edge_first")
-    LAUNCHES["gnn_edge_first"] += 1
+    _EDGE_FIRST(dev.index, nrs.data_ptr(), g.data_ptr(), recv_idx.data_ptr(),
+                send_idx.data_ptr(), packed.w1r_g.data_ptr(), bias[0].data_ptr(),
+                h1.data_ptr(), B, E, n_pad, F)
     del nrs
     _, h = gnn_gemm(h1, packed.wt_2r, bias=bias[1], relu=True, f32=False, bf16=True)
     del h1

@@ -37,7 +37,7 @@ MAX_T = 8192  # tiles a hot-loop launch (its sort's shared memory)
 
 F32, I32T = torch.float32, torch.int32
 _ONE = torch.Size([1])
-# Kernel launches per variant, counted by the wrappers where they launch.
+# Kernel launches per variant, each counted by its variant's `Launcher`.
 LAUNCHES = {"hot_loop": 0, "hot_loop_poly": 0, "dynamic_roll": 0}
 
 LIBRARY = CudaLibrary(
@@ -46,8 +46,11 @@ LIBRARY = CudaLibrary(
      "gsdx_probe_roll": [PTR] * 3 + [I32] * 2 + [PTR],
      "gsdx_probe_empty": [PTR]},
     error_string="gsdx_probes_error_string")
-_HOT_LOOP = Launcher(LIBRARY, "gsdx_probe_hot_loop", "composite_hot_loop")
-_ROLL = Launcher(LIBRARY, "gsdx_probe_roll", "dynamic_roll")
+_HOT_LOOP = Launcher(LIBRARY, "gsdx_probe_hot_loop", "composite_hot_loop", LAUNCHES,
+                     "hot_loop")
+_HOT_LOOP_POLY = Launcher(LIBRARY, "gsdx_probe_hot_loop", "composite_hot_loop", LAUNCHES,
+                          "hot_loop_poly")
+_ROLL = Launcher(LIBRARY, "gsdx_probe_roll", "dynamic_roll", LAUNCHES, "dynamic_roll")
 _EMPTY = Launcher(LIBRARY, "gsdx_probe_empty", "empty_launch")
 
 
@@ -154,9 +157,9 @@ def composite_hot_loop(feats: torch.Tensor, counts: torch.Tensor, sub: int,
     accum = torch.empty((T, N_ACCUM, P), device=dev)
     logt = torch.empty((T, 1, P), device=dev)
     next_unit = torch.empty(1, dtype=torch.int32, device=dev)
-    _HOT_LOOP(dev.index, feats.data_ptr(), counts.data_ptr(), accum.data_ptr(),
-              logt.data_ptr(), next_unit.data_ptr(), T, K, sub, int(transcend))
-    LAUNCHES["hot_loop" if transcend else "hot_loop_poly"] += 1
+    (_HOT_LOOP if transcend else _HOT_LOOP_POLY)(
+        dev.index, feats.data_ptr(), counts.data_ptr(), accum.data_ptr(), logt.data_ptr(),
+        next_unit.data_ptr(), T, K, sub, int(transcend))
     return accum, logt
 
 
@@ -204,7 +207,6 @@ def dynamic_roll(x: torch.Tensor, shift: torch.Tensor,
                 and out.is_contiguous() and (po + n <= px or px + n <= po)):
             _refuse_roll(x, shift, out)
     _ROLL(dev, px, shift.data_ptr(), po, xs[0], xs[1])
-    LAUNCHES["dynamic_roll"] += 1
     return out
 
 

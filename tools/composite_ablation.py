@@ -8,7 +8,7 @@ and 4 pixels a thread.
 Each variant is the committed source with its compile-time constants
 changed (`CLUSTER_BY_TILE_H`, `CULL`, `PPT_FWD`, `PPT_BWD`, and
 `MAX_THREADS` as the block's size needs), built by nvcc into
-build/composite_ablation/ and swapped in as the wrappers' library. The
+build/composite_ablation/ and run by the wrappers (`LIBRARY.using`). The
 shapes are `chip_smoke.py`'s 720p tile inputs (n_accum 7): 8192 Gaussians
 at tile_h 32 (K 512, sub 64; with and without presort), at tile_h 24 and at
 tile_h 8; 16384 Gaussians at tile_h 16 (sub 128, presort, as `rasterize`
@@ -156,18 +156,16 @@ def main() -> int:
     for name, log in logs.items():
         print(json.dumps({"variant": name, "ptxas": S.ptxas_report([log])}), flush=True)
 
-    shipped = C.LIBRARY
     order = list(libs) + list(reversed(list(libs)))
-    try:
-        for shape, tf, counts, geo, presort in shape_inputs():
-            g = torch.Generator(device="cuda").manual_seed(1)
-            T, _, K = tf.shape
-            P = geo["tile_h"] * geo["tile_w"]
-            g_acc = torch.randn(T, geo["n_accum"], P, device="cuda", generator=g)
-            g_lt = torch.randn(T, 1, P, device="cuda", generator=g)
-            ref, row = None, {}
-            for name in order:
-                C.LIBRARY = libs[name]
+    for shape, tf, counts, geo, presort in shape_inputs():
+        g = torch.Generator(device="cuda").manual_seed(1)
+        T, _, K = tf.shape
+        P = geo["tile_h"] * geo["tile_w"]
+        g_acc = torch.randn(T, geo["n_accum"], P, device="cuda", generator=g)
+        g_lt = torch.randn(T, 1, P, device="cuda", generator=g)
+        ref, row = None, {}
+        for name in order:
+            with C.LIBRARY.using(libs[name]):
                 r = row.setdefault(name, {"fwd_ms": [], "bwd_ms": []})
                 # a variant may not fit a shape: a tile taller than its block
                 # is sized for, or more shared memory than the card has
@@ -204,13 +202,11 @@ def main() -> int:
                 if grad is not None:
                     r["bwd_ms"].append(S.kernel_device_ms(
                         lambda: C.composite_bwd(*args_b, **geo), r"\bbwd_kernel<"))
-            print(json.dumps({"shape": shape, "T": T, "K": K, "P": P,
-                              "tile_h": geo["tile_h"],
-                              "sub": geo["sub_chunk"], "n_accum": geo["n_accum"],
-                              "nonempty_tiles": int((counts > 0).sum()),
-                              "variants": row}), flush=True)
-    finally:
-        C.LIBRARY = shipped
+        print(json.dumps({"shape": shape, "T": T, "K": K, "P": P,
+                          "tile_h": geo["tile_h"],
+                          "sub": geo["sub_chunk"], "n_accum": geo["n_accum"],
+                          "nonempty_tiles": int((counts > 0).sum()),
+                          "variants": row}), flush=True)
     return 0
 
 

@@ -205,17 +205,15 @@ def _time_shapes(libs: dict, card: str, clk_mhz: float) -> list[dict]:
                            geo, presort))
     rows = []
     order = list(libs) + list(reversed(list(libs)))
-    shipped = C.LIBRARY
-    try:
-        for name, tf, counts, geo, presort in shapes:
-            T, _, Kt = tf.shape
-            P = geo["tile_h"] * geo["tile_w"]
-            g = torch.Generator(device="cuda").manual_seed(1)
-            g_acc = torch.randn(T, geo["n_accum"], P, device="cuda", generator=g)
-            g_lt = torch.randn(T, 1, P, device="cuda", generator=g)
-            times = {k: {"fwd_ms": [], "bwd_ms": []} for k in libs}
-            for k in order:
-                C.LIBRARY = libs[k]
+    for name, tf, counts, geo, presort in shapes:
+        T, _, Kt = tf.shape
+        P = geo["tile_h"] * geo["tile_w"]
+        g = torch.Generator(device="cuda").manual_seed(1)
+        g_acc = torch.randn(T, geo["n_accum"], P, device="cuda", generator=g)
+        g_lt = torch.randn(T, 1, P, device="cuda", generator=g)
+        times = {k: {"fwd_ms": [], "bwd_ms": []} for k in libs}
+        for k in order:
+            with C.LIBRARY.using(libs[k]):
                 out = C.composite_fwd(tf, counts, **geo, presort=presort)
                 args_b = (out[4] if presort else tf, counts, out[2], out[1], g_acc, g_lt,
                           out[3])
@@ -224,14 +222,12 @@ def _time_shapes(libs: dict, card: str, clk_mhz: float) -> list[dict]:
                     r"\bfwd_kernel<"))
                 times[k]["bwd_ms"].append(S.kernel_device_ms(
                     lambda: C.composite_bwd(*args_b, **geo), r"\bbwd_kernel<"))
-            row = {"shape": name, "presort": presort, "T": T, "K": Kt,
-                   "tile_h": geo["tile_h"], "sub": geo["sub_chunk"],
-                   "n_accum": geo["n_accum"], "nonempty_tiles": int((counts > 0).sum()),
-                   "device_ms": times}
-            print(json.dumps(row), flush=True)
-            rows.append(row)
-    finally:
-        C.LIBRARY = shipped
+        row = {"shape": name, "presort": presort, "T": T, "K": Kt,
+               "tile_h": geo["tile_h"], "sub": geo["sub_chunk"],
+               "n_accum": geo["n_accum"], "nonempty_tiles": int((counts > 0).sum()),
+               "device_ms": times}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
     return rows
 
 
@@ -264,20 +260,16 @@ def main(argv=None) -> int:
     for lib in libs.values():
         lib.build()
     ok = True
-    shipped = C.LIBRARY
-    try:
-        for name, lib in libs.items():
-            C.LIBRARY = lib
-            for presort in (False, True):
-                try:
+    for name, lib in libs.items():
+        for presort in (False, True):
+            try:
+                with C.LIBRARY.using(lib):
                     row = S.check_cut_stress(presort, args.seed)
-                    row["passed"] = True
-                except AssertionError as e:
-                    row = {"presort": presort, "passed": False, "failure": str(e)[:2000]}
-                    ok &= name != "tree"
-                print(json.dumps(dict(row, source=name)), flush=True)
-    finally:
-        C.LIBRARY = shipped
+                row["passed"] = True
+            except AssertionError as e:
+                row = {"presort": presort, "passed": False, "failure": str(e)[:2000]}
+                ok &= name != "tree"
+            print(json.dumps(dict(row, source=name)), flush=True)
     info = S.card_info()
     _time_shapes(libs, info["nvidia_smi"], info["max_sm_mhz"])
     if not ok:

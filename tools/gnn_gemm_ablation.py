@@ -31,7 +31,6 @@ variant's times and launch (grid, tile, stages).
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import re
 import subprocess
@@ -45,6 +44,7 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 from gsdx_torch.kernels import _build  # noqa: E402
+from gsdx_torch.kernels._build import ptr  # noqa: E402
 from gsdx_torch.kernels import gnn_forward as G  # noqa: E402
 
 # Knob settings of each variant, over the committed source's.
@@ -117,10 +117,12 @@ def main(argv=None) -> int:
                                         G.GEMM_LIBRARY.functions, G.GEMM_LIBRARY.error_string)
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: lib.build(), libs.values()))
-    libs = {name: lib.load() for name, lib in libs.items()}
+    # launched straight, not through `G.gnn_gemm`, which refuses a call
+    # without outputs
+    gemms = {name: _build.Launcher(lib, "gsdx_gnn_gemm", f"variant {name!r}")
+             for name, lib in libs.items()}
 
-    dev = torch.device("cuda")
-    stream = torch.cuda.current_stream().cuda_stream
+    dev = torch.device("cuda", torch.cuda.current_device())
     g = torch.Generator(device=dev).manual_seed(0)
     order = list(libs) + list(reversed(list(libs)))
     for label, M, N, epi in SHAPES:
@@ -134,18 +136,12 @@ def main(argv=None) -> int:
         yf = torch.empty(M, N, device=dev) if epi["out"] in ("f32", "both") else None
         yb = (torch.empty(M, N, device=dev, dtype=torch.bfloat16)
               if epi["out"] in ("bf16", "both") else None)
-        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
         ref, row = None, {}
         for name in order:
-            lib = libs[name]
-
-            def run(store: bool = True, lib=lib, name=name) -> None:
-                err = lib.gsdx_gnn_gemm(x.data_ptr(), wt.data_ptr(), M, N, K, ptr(bias),
-                                        ptr(r1), ptr(r2), ptr(yf) if store else None,
-                                        ptr(yb) if store else None, int(epi.get("relu", 0)),
-                                        stream)
-                if err:
-                    raise RuntimeError(f"{name}: launch failed ({err})")
+            def run(store: bool = True, gemm=gemms[name]) -> None:
+                gemm(dev.index, x.data_ptr(), wt.data_ptr(), M, N, K, ptr(bias), ptr(r1),
+                     ptr(r2), ptr(yf) if store else None, ptr(yb) if store else None,
+                     int(epi.get("relu", 0)))
 
             try:
                 run()
@@ -158,9 +154,8 @@ def main(argv=None) -> int:
             elif not all(torch.equal(a, b) for a, b in zip(outs, ref)):
                 raise AssertionError(f"{name} differs from {order[0]} at {label}")
             entry = row.setdefault(name, {"ms": [], "ms_without_outputs": []})
-            out = (ctypes.c_int * len(G.GEMM_LAUNCH_FIELDS))()
-            lib.gsdx_gnn_gemm_last_launch(ctypes.cast(out, ctypes.c_void_p))
-            entry["launch"] = dict(zip(G.GEMM_LAUNCH_FIELDS, out))
+            entry["launch"] = libs[name].record("gsdx_gnn_gemm_last_launch",
+                                                G.GEMM_LAUNCH_FIELDS)
             entry["ms"].append(mean_ms(run, args.reps))
             entry["ms_without_outputs"].append(mean_ms(lambda: run(False), args.reps))
         w_kn = wt[:N].t()

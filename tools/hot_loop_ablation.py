@@ -62,15 +62,13 @@ def variant_source(knobs: dict) -> str:
     return src
 
 
-def launch(library, feats, counts, sub: int, transcend: bool):
+def launch(hot_loop: _build.Launcher, feats, counts, sub: int, transcend: bool):
     T, _, K = feats.shape
     accum = torch.empty((T, probes.N_ACCUM, probes.P), device=feats.device)
     logt = torch.empty((T, 1, probes.P), device=feats.device)
     scratch = torch.empty(1, dtype=torch.int32, device=feats.device)
-    err = library.load().gsdx_probe_hot_loop(
-        feats.data_ptr(), counts.data_ptr(), accum.data_ptr(), logt.data_ptr(),
-        scratch.data_ptr(), T, K, sub, int(transcend), torch.cuda.current_stream().cuda_stream)
-    library.check(err, "hot loop variant")
+    hot_loop(feats.device.index, feats.data_ptr(), counts.data_ptr(), accum.data_ptr(),
+             logt.data_ptr(), scratch.data_ptr(), T, K, sub, int(transcend))
     return accum, logt
 
 
@@ -101,19 +99,21 @@ def main(argv=None) -> int:
         print(json.dumps({"variant": name, "ptxas": S.ptxas_report([log])}), flush=True)
     clk = S.card_info()["max_sm_mhz"]
     pipes = {name: S.hot_loop_pipes(lib.path()) for name, lib in libs.items()}
+    hot = {name: _build.Launcher(lib, "gsdx_probe_hot_loop", f"hot loop variant {name!r}")
+           for name, lib in libs.items()}
     for sub in probes.SUBS:
         feats, counts = tp.probe_inputs(sub)
         w = tp.work(counts, sub)
         for transcend in (True, False):
             key = f"{'transcend' if transcend else 'poly'}_{sub}"
-            ref = launch(libs["shipped"], feats, counts, sub, transcend)
+            ref = launch(hot["shipped"], feats, counts, sub, transcend)
             row = {}
             for name in names + names[::-1]:
-                got = launch(libs[name], feats, counts, sub, transcend)
+                got = launch(hot[name], feats, counts, sub, transcend)
                 if not all(torch.equal(a, b) for a, b in zip(got, ref)):
                     raise AssertionError(f"{name}: outputs differ from the shipped kernel's")
                 ms = S.kernel_device_ms(
-                    lambda name=name: launch(libs[name], feats, counts, sub, transcend),
+                    lambda name=name: launch(hot[name], feats, counts, sub, transcend),
                     rf"hot_loop_kernel<{'true' if transcend else 'false'}, {sub}>")
                 r = row.setdefault(name, {"device_ms": ms, **tp.sass_bound_ms(
                     w["pairs"], pipes[name][key], clk)})
