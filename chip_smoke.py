@@ -36,7 +36,8 @@ Phases, each printing one JSON line:
      their plain versions; the fused GNN forward against its plain version at
      rope width (125 samples, 128 node slots, 504 edge slots; trained
      weights, edges of the committed trajectory) and cloth width (256 /
-     1200, random init), with and without its index check; CUDA-event
+     1200, random init), with its index check on the host, on the device
+     (an error word, bit-equal to the host-checked forward) and without it; CUDA-event
      times and the card's lower bound for the same work.
   3. rasterize: fwd+bwd Mpix/s at 5k, 16k and 65k Gaussians, 720p.
   4. slice: `track_sequence` at 4 cameras, 720p, capacity 8192: t=0 with
@@ -1296,7 +1297,8 @@ def forward_kernel_ms(packed, ins, pstep: int, calls: int = 5) -> dict:
 def compare_gnn(name: str, packed, ins, n_obj: int, weights: str) -> dict:
     """The fused forward's kernels against `gnn_forward_plain`: its bf16
     mode (asserted) and its f32 mode (reported); timed with the index check
-    (the public entry point) and without it."""
+    on the host (the public entry point), on the device (an error word: the
+    push loop's mode, asserted bit-equal) and without it."""
     from gsdx_torch.kernels import gnn_forward as G
 
     pstep = 3
@@ -1314,7 +1316,13 @@ def compare_gnn(name: str, packed, ins, n_obj: int, weights: str) -> dict:
     if not (torch.isfinite(out_k).all() and err <= tol):
         raise AssertionError(f"{name}: GNN kernels vs plain (bf16) max |err| {err} "
                              f"> {GNN_TOL[weights]} x {scale}")
+    word = torch.zeros(1, dtype=torch.int32, device="cuda")
+    out_d = G.fused_gnn_forward(packed, *ins, errors=word)
+    if int(word) or not torch.equal(out_d, out_k):
+        raise AssertionError(f"{name}: the device-checked forward differs from the "
+                             f"host-checked one (error word {int(word)})")
     ms_k = cuda_ms(lambda: G.fused_gnn_forward(packed, *ins))
+    ms_device = cuda_ms(lambda: G.fused_gnn_forward(packed, *ins, errors=word))
     ms_unchecked = cuda_ms(lambda: G._launch_forward(packed, *ins, pstep))
     ms_p = cuda_ms(lambda: G.gnn_forward_plain(packed, *ins, operands="bf16"), reps=5)
     B, n_pad, _ = ins[0].shape
@@ -1341,7 +1349,8 @@ def compare_gnn(name: str, packed, ins, n_obj: int, weights: str) -> dict:
             "plain_bf16_f64_spread": spread, "tolerance": tol,
             "tolerance_reason": f"{GNN_TOL[weights]} of the output's largest entry, "
                                 f"{weights} weights: bf16 rounding flips",
-            "max_abs_out": scale, "ms": ms_k, "unchecked_ms": ms_unchecked,
+            "max_abs_out": scale, "ms": ms_k, "device_checked_ms": ms_device,
+            "unchecked_ms": ms_unchecked,
             "check_share": 1 - ms_unchecked / ms_k, "plain_ms": ms_p,
             "bound_ms": 1e3 * max(t_bytes, t_bf16),
             "bound_by": "bytes" if t_bytes >= t_bf16 else "operations",

@@ -55,7 +55,9 @@
 //     past L2's keep), ew and agg.
 // Empty slots (-1) never reach an aggregation. Their rows of the relation
 // encoder hold relu(b1)-derived values, as in the TPU kernel, and nothing
-// reads them.
+// reads them. An index outside [-1, n_pad) reads as an empty slot in every
+// kernel, so no row is read out of bounds; gnn_edge_first can flag such
+// slots in an error word that the caller reads once for many forwards.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -168,18 +170,26 @@ gnn_linear_kernel(const float* __restrict__ X, int ldx,
 }
 
 // One block per edge row, F / 4 threads of four columns each.
-// nrs (B * n_pad, 2F): nr in columns [0, F), ns in [F, 2F).
+// nrs (B * n_pad, 2F): nr in columns [0, F), ns in [F, 2F). An index outside
+// [-1, n_pad) reads as an empty slot, as the one-hot product reads it; where
+// `errors` is given, such a slot ORs its bit into it: recv 1, send 2.
 __global__ void gnn_edge_first_kernel(const float* __restrict__ nrs,
                                       const float* __restrict__ g,
                                       const int* __restrict__ recv,
                                       const int* __restrict__ send,
                                       const __nv_bfloat16* __restrict__ wg,
                                       const float* __restrict__ b1,
-                                      __nv_bfloat16* __restrict__ h1, int E, int n_pad,
-                                      int F) {
+                                      __nv_bfloat16* __restrict__ h1,
+                                      int* __restrict__ errors, int E, int n_pad, int F) {
   const long e = blockIdx.x;
   const long b = e / E;
-  const int r = recv[e], s = send[e];
+  int r = recv[e], s = send[e];
+  if (errors && threadIdx.x == 0) {
+    const int bits = (r < -1 || r >= n_pad) | ((s < -1 || s >= n_pad) << 1);
+    if (bits) atomicOr(errors, bits);
+  }
+  if (r >= n_pad) r = -1;
+  if (s >= n_pad) s = -1;
   const int f = threadIdx.x * 4;
   const float gr = r >= 0 ? g[b * n_pad + r] : 0.f;
   const float gs = s >= 0 ? g[b * n_pad + s] : 0.f;
@@ -296,7 +306,7 @@ __global__ void gnn_message_kernel(const float* __restrict__ rel_pre,
         rp[k] = es[k] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (i + k < cnt) {
           rp[k] = __ldcs(reinterpret_cast<const float4*>(&rel_pre[(b * E + slot) * F + f]));
-          if (s >= 0)
+          if (s >= 0 && s < n_pad)  // a sender outside [0, n_pad) reads as empty
             es[k] = *reinterpret_cast<const float4*>(&ew[(b * n_pad + s) * 2 * F + F + f]);
         }
       }
@@ -340,16 +350,17 @@ int gsdx_gnn_linear(const float* X, int ldx, const void* W, int w_f32,
   return static_cast<int>(cudaGetLastError());
 }
 
+// errors: one int32 word the out-of-range slots OR their bits into, or null.
 int gsdx_gnn_edge_first(const float* nrs, const float* g, const int* recv,
                         const int* send, const void* wg, const float* b1,
-                        void* h1, int B, int E, int n_pad, int F,
+                        void* h1, int* errors, int B, int E, int n_pad, int F,
                         void* stream) {
   if (bad_width(F)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || E == 0) return 0;
   gnn_edge_first_kernel<<<static_cast<unsigned>(B) * E, F / 4, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       nrs, g, recv, send, static_cast<const __nv_bfloat16*>(wg), b1,
-      static_cast<__nv_bfloat16*>(h1), E, n_pad, F);
+      static_cast<__nv_bfloat16*>(h1), errors, E, n_pad, F);
   return static_cast<int>(cudaGetLastError());
 }
 

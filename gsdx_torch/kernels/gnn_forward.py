@@ -27,12 +27,16 @@ Five pieces:
     layer 1, receiver segments, message rounds) and `gnn_gemm.cu` (the
     Hopper port of gsdx's Pallas `_gnn_kernel`). A CUDA tensor launches them
     or raises; only CPU tensors take the plain version. `LAUNCHES` counts
-    the launches.
+    the launches, `CHECKS` the forwards by where their edge indices were
+    checked: on the host before the launches, or on the device into an
+    error word the caller reads once for many forwards (``errors=``).
 
 Inputs, per sample b of a chunk: attrs (B, n_pad, 2), action (B, n_pad, 3),
 state_t (B, n_pad, 3 * n_his) history-major node positions, g (B, n_pad, 1)
 the instance column, recv/send (B, E) int32 node indices with -1 on empty
-slots. Output (B, n_pad, 8) f32 raw motion, columns 0:3 meaningful.
+slots (an index outside [-1, n_pad) reads as an empty slot everywhere, as
+the one-hot product reads it, and is an error the wrappers report). Output
+(B, n_pad, 8) f32 raw motion, columns 0:3 meaningful.
 Supported families: attr_dim 2, rel_group_dim 1, rel_distance_dim 3 * n_his,
 action_dim 3, nf_particle == nf_relation == nf_effect, with the rope
 particle inputs (attr + action) or the cloth/dog/sloth ones (attr + z
@@ -62,6 +66,14 @@ LAUNCHES = {"gnn_forward": 0, "gnn_linear": 0, "gnn_gemm": 0,
 # The K-major weight copies hold a multiple of GEMM_BN rows: the narrow GEMM
 # tile's width (its wide tile, 256, is taken only where N is a multiple).
 GEMM_BN = 128
+
+
+# Fused forwards by where their edge indices were checked: "host" by a host
+# read before the launches, "device" into the caller's error word.
+CHECKS = {"host": 0, "device": 0}
+
+# The bits an out-of-range slot sets in an error word.
+INDEX_ERROR_BITS = {"recv": 1, "send": 2}
 
 
 def reset_launches() -> None:
@@ -216,11 +228,13 @@ def pack_gnn_params(params, n_his: int = 3, dtype=torch.bfloat16,
 
 
 def _select(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows ``idx`` (B, E) of ``x`` (B, N, C) per sample; -1 reads as zero
-    (the one-hot product of the TPU kernel, which is exact)."""
-    rows = torch.gather(x, 1, idx.clamp(min=0).long()[..., None].expand(
+    """Rows ``idx`` (B, E) of ``x`` (B, N, C) per sample; an index outside
+    [0, N) (-1 on an empty slot) reads as zero (the one-hot product of the
+    TPU kernel, which is exact)."""
+    rows = torch.gather(x, 1, idx.clamp(0, x.shape[1] - 1).long()[..., None].expand(
         -1, -1, x.shape[2]))
-    return torch.where((idx >= 0)[..., None], rows, torch.zeros_like(rows))
+    inside = (idx >= 0) & (idx < x.shape[1])
+    return torch.where(inside[..., None], rows, torch.zeros_like(rows))
 
 
 def gnn_forward_plain(packed: PackedGNN, attrs, action, state_t, g, recv_idx,
@@ -269,7 +283,7 @@ def gnn_forward_plain(packed: PackedGNN, attrs, action, state_t, g, recv_idx,
     # receiver of each slot as a row of the flattened (B * (n_pad + 1), F)
     # sum; empty slots go to a spare row per sample that is dropped
     recv = recv_idx.long()
-    sink = torch.where(recv >= 0, recv, torch.full_like(recv, n_pad))
+    sink = torch.where((recv >= 0) & (recv < n_pad), recv, torch.full_like(recv, n_pad))
     rows = (sink + torch.arange(B, device=recv.device)[:, None] * (n_pad + 1)).reshape(-1)
     effect = enc_p
     for _ in range(pstep):
@@ -326,8 +340,9 @@ def gnn_message_plain(rel_pre: torch.Tensor, ew: torch.Tensor, seg_off: torch.Te
     """`gnn_message`'s function in plain PyTorch: agg (B * n_pad, F), row
     (b, n) the sum over receiver n's segment, in slot order, of
     relu((rel_pre[slot] + ewr[b, n]) + ews[b, send[slot]]) (ews of an empty
-    sender reads as zero). rel_pre (B * E, F) and ew (B * n_pad, 2F) =
-    ewr | ews f32, the segments of `receiver_segments_plain`. The sum runs
+    sender, or of one outside [0, n_pad), reads as zero). rel_pre (B * E, F)
+    and ew (B * n_pad, 2F) = ewr | ews f32, the segments of
+    `receiver_segments_plain`. The sum runs
     one padded segment column at a time, each row adding its j-th slot (or
     zero past its segment), so every entry is the kernel's sequence of f32
     adds: bit-equal on the card. bf16 (nearest even) as the kernel stores
@@ -348,8 +363,8 @@ def gnn_message_plain(rel_pre: torch.Tensor, ew: torch.Tensor, seg_off: torch.Te
         slot = torch.where(valid, slot, torch.zeros_like(slot))
         s = torch.gather(send, 1, slot)
         rp = rel_pre[(base_e + slot).reshape(-1)]
-        es = ews[(base_n + s.clamp(min=0)).reshape(-1)]
-        es = torch.where((s >= 0).reshape(-1, 1), es, torch.zeros_like(es))
+        es = ews[(base_n + s.clamp(0, n_pad - 1)).reshape(-1)]
+        es = torch.where(((s >= 0) & (s < n_pad)).reshape(-1, 1), es, torch.zeros_like(es))
         term = torch.relu(rp + ewr + es)
         acc = acc + torch.where(valid.reshape(-1, 1), term, torch.zeros_like(term))
     return acc.to(torch.bfloat16) if bf16 else acc
@@ -362,7 +377,7 @@ def gnn_message_plain(rel_pre: torch.Tensor, ew: torch.Tensor, seg_off: torch.Te
 LIBRARY = CudaLibrary(
     "gsdx_gnn_forward", "gnn_forward.cu",
     {"gsdx_gnn_linear": [PTR, I32, PTR, I32, PTR, PTR, PTR, PTR, I32, I32, I32, I32, PTR],
-     "gsdx_gnn_edge_first": [PTR] * 7 + [I32] * 4 + [PTR],
+     "gsdx_gnn_edge_first": [PTR] * 8 + [I32] * 4 + [PTR],
      "gsdx_gnn_segments": [PTR] * 3 + [I32] * 3 + [PTR],
      "gsdx_gnn_message": [PTR] * 6 + [I32] * 4 + [PTR]},
     error_string="gsdx_gnn_error_string")
@@ -449,9 +464,8 @@ def gnn_message(rel_pre: torch.Tensor, ew: torch.Tensor, seg_off: torch.Tensor,
                 seg_slot: torch.Tensor, send_idx: torch.Tensor, n_pad: int) -> torch.Tensor:
     """One message round's aggregation, agg (B * n_pad, F) bf16; the
     arguments as `gnn_message_plain`'s. CUDA tensors launch
-    `gnn_message_kernel`; CPU tensors run the plain version. Senders are
-    not checked here (`fused_gnn_forward` checks them): each must lie in
-    [-1, n_pad)."""
+    `gnn_message_kernel`; CPU tensors run the plain version. A sender
+    outside [0, n_pad) reads as empty."""
     if not ew.is_cuda:
         return gnn_message_plain(rel_pre, ew, seg_off, seg_slot, send_idx, n_pad)
     B, E = send_idx.shape
@@ -497,8 +511,8 @@ def _check_inputs(packed: PackedGNN, **tensors) -> torch.device:
 
 
 def _check_indices(recv_idx: torch.Tensor, send_idx: torch.Tensor, n_pad: int) -> None:
-    """Every slot holds -1 (empty) or a node row below ``n_pad``: the kernels
-    read the rows unchecked. One host read."""
+    """Every slot holds -1 (empty) or a node row below ``n_pad``. One host
+    read."""
     if recv_idx.device != send_idx.device:
         raise ValueError(f"recv_idx is on {recv_idx.device}, send_idx on {send_idx.device}")
     if recv_idx.numel() == 0:
@@ -510,26 +524,67 @@ def _check_indices(recv_idx: torch.Tensor, send_idx: torch.Tensor, n_pad: int) -
                          f"[{lo_r}, {hi_r}], send in [{lo_s}, {hi_s}]")
 
 
+def _flag_indices(recv_idx: torch.Tensor, send_idx: torch.Tensor, n_pad: int,
+                  errors: torch.Tensor) -> None:
+    """OR into ``errors`` the bits of `gnn_edge_first_kernel`: 1 where a
+    receiver, 2 where a sender lies outside [-1, n_pad). No host read."""
+    def outside(idx):
+        return ((idx < -1) | (idx >= n_pad)).any().to(torch.int32)
+
+    errors.bitwise_or_(outside(recv_idx) * INDEX_ERROR_BITS["recv"]
+                       + outside(send_idx) * INDEX_ERROR_BITS["send"])
+
+
+def raise_on_index_errors(word: int, n_pad: int) -> None:
+    """The index check's ValueError for an error word read back from
+    forwards given ``errors=``; nothing where the word is 0."""
+    if word:
+        which = " and ".join(n for n, bit in INDEX_ERROR_BITS.items() if word & bit)
+        raise ValueError(f"edge indices must lie in [-1, {n_pad}): a forward given "
+                         f"an error word found {which} indices outside it")
+
+
 def fused_gnn_forward(packed: PackedGNN, attrs, action, state_t, g, recv_idx,
-                      send_idx, pstep: int = 3) -> torch.Tensor:
+                      send_idx, pstep: int = 3, *,
+                      errors: torch.Tensor | None = None) -> torch.Tensor:
     """Batched fused forward; see the module docstring for shapes. CUDA
     tensors launch the kernels of `csrc/gnn_forward.cu` and `csrc/gnn_gemm.cu`
     (bf16 weights and product operands, f32 sums); CPU tensors run
-    `gnn_forward_plain(operands="bf16")`, their plain version. An edge index
-    outside [-1, n_pad) raises on either. Spans: ``gnn.check`` (the index
-    check and its host read), ``gnn.launch`` (the launches)."""
+    `gnn_forward_plain(operands="bf16")`, their plain version.
+
+    Edge indices outside [-1, n_pad): without ``errors``, one host read
+    checks them and the call raises before any launch. ``errors``, a
+    one-element int32 tensor on the inputs' device, moves the check to the
+    device: such a slot reads as empty, the call reads nothing back and
+    ORs `INDEX_ERROR_BITS` into the word, which the caller reads when it
+    will (`raise_on_index_errors`). Spans: ``gnn.check`` (the index check,
+    with its host read where it has one), ``gnn.launch`` (the launches)."""
+    n_pad = attrs.shape[1]
     with span("gnn.check"):
-        _check_indices(recv_idx, send_idx, attrs.shape[1])
+        if errors is None:
+            _check_indices(recv_idx, send_idx, n_pad)
+            CHECKS["host"] += 1
+        else:
+            if (errors.dtype != torch.int32 or errors.numel() != 1
+                    or errors.device != recv_idx.device):
+                raise ValueError(f"errors must be a one-element int32 tensor on "
+                                 f"{recv_idx.device}, got {errors.dtype} "
+                                 f"{tuple(errors.shape)} on {errors.device}")
+            if not attrs.is_cuda:
+                _flag_indices(recv_idx, send_idx, n_pad, errors)
+            CHECKS["device"] += 1
     if not attrs.is_cuda:
         return gnn_forward_plain(packed, attrs, action, state_t, g, recv_idx,
                                  send_idx, pstep, operands="bf16")
     with span("gnn.launch"):
-        return _launch_forward(packed, attrs, action, state_t, g, recv_idx, send_idx, pstep)
+        return _launch_forward(packed, attrs, action, state_t, g, recv_idx, send_idx, pstep,
+                               errors)
 
 
 def _launch_forward(packed: PackedGNN, attrs, action, state_t, g, recv_idx,
-                    send_idx, pstep: int) -> torch.Tensor:
-    """The CUDA launches of `fused_gnn_forward`, after its index check."""
+                    send_idx, pstep: int, errors: torch.Tensor | None = None) -> torch.Tensor:
+    """The CUDA launches of `fused_gnn_forward`, after its index check;
+    ``errors`` goes to `gnn_edge_first_kernel`."""
     B, n_pad, _ = attrs.shape
     E = recv_idx.shape[1]
     nd = state_t.shape[2]
@@ -575,7 +630,7 @@ def _launch_forward(packed: PackedGNN, attrs, action, state_t, g, recv_idx,
     h1 = empty(Me, F, dtype=torch.bfloat16)
     _EDGE_FIRST(dev.index, nrs.data_ptr(), g.data_ptr(), recv_idx.data_ptr(),
                 send_idx.data_ptr(), packed.w1r_g.data_ptr(), bias[0].data_ptr(),
-                h1.data_ptr(), B, E, n_pad, F)
+                h1.data_ptr(), ptr(errors), B, E, n_pad, F)
     del nrs
     _, h = gnn_gemm(h1, packed.wt_2r, bias=bias[1], relu=True, f32=False, bf16=True)
     del h1

@@ -22,13 +22,17 @@ The GNN of a push step is, by `RolloutSpec.fused`:
   * "twin": `gnn_forward_plain`, the kernels' plain version (any device);
   * "off": the `DynamicsPredictor` module.
 ``needs_grad=True`` (the GD planner) always takes the module: the kernels
-have no backward.
+have no backward. On the kernels' route every push step's forward checks
+its edge indices on the device, into one error word a call
+(``fused_gnn_forward(..., errors=)``); the call reads the word once, after
+its last chunk, and raises the index check's ValueError if it is set.
 
 The push loop's host work lies in spans (`utils/profiling.py`):
 ``rollout.order`` (decode, pack, sort), a ``rollout.chunk`` a chunk holding
 ``rollout.head``, the trip count's host read and a ``rollout.step`` a push
 (``graph.edges``, ``rollout.pad``, ``rollout.gnn``, ``rollout.advance``),
-then ``rollout.gather``.
+then ``rollout.gather`` and, on the kernels' route, the error word's host
+read (``read.gnn_errors``).
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ import torch
 from gsdx_torch.dynamics.model import DynamicsPredictor, flax_params
 from gsdx_torch.graph.edges import construct_edge_indices_batch, construct_edges_batch
 from gsdx_torch.kernels.gnn_forward import (fused_gnn_forward, gnn_forward_plain,
-                                            pack_gnn_params)
+                                            pack_gnn_params, raise_on_index_errors)
 from gsdx_torch.plan.actions import decode_action
 from gsdx_torch.utils.profiling import host_read, span
 
@@ -76,6 +80,11 @@ def _fused_refusal(cfg, max_nobj: int) -> str | None:
               ("max_nobj", max_nobj, max_nobj + 1 <= 256)]
     bad = [f"{name} = {value}" for name, value, ok in checks if not ok]
     return ", ".join(bad) or None
+
+
+def node_pad(n_nodes: int) -> int:
+    """The node slots the fused forward pads ``n_nodes`` (objects + tool) to."""
+    return 128 if n_nodes <= 128 else 256
 
 
 def fused_route(spec: RolloutSpec, cfg, device: torch.device, needs_grad: bool) -> bool:
@@ -115,8 +124,9 @@ def make_batched_rollout(model: DynamicsPredictor, spec: RolloutSpec):
                                          n_his=spec.n_his, device=device)
         return packs[key]
 
-    def roll_block(state, decoded, repeats, packed, needs_grad):
-        """Per-sample independent rollout of one (Bc, L, 4) action block."""
+    def roll_block(state, decoded, repeats, packed, errors, needs_grad):
+        """Per-sample independent rollout of one (Bc, L, 4) action block;
+        the kernels' forwards flag bad edge indices into ``errors``."""
         with span("rollout.chunk"):
             with span("rollout.head"):
                 Bc, L = decoded.shape[:2]
@@ -135,13 +145,14 @@ def make_batched_rollout(model: DynamicsPredictor, spec: RolloutSpec):
                     p_instance = torch.ones((Bc, n_obj, 1), device=dev)
                 else:
                     e_pad = -(-spec.max_nR // 8) * 8
-                    n_pad = 128 if N <= 128 else 256
+                    n_pad = node_pad(N)
                     attrs_pad = torch.zeros((Bc, n_pad, 2), device=dev)
                     attrs_pad[:, :n_obj, 0] = 1.0
                     attrs_pad[:, n_obj:N, 1] = 1.0
                     g_pad = torch.zeros((Bc, n_pad, 1), device=dev)
                     g_pad[:, :n_obj, 0] = 1.0
-                    gnn = gnn_forward_plain if spec.fused == "twin" else fused_gnn_forward
+                    gnn = gnn_forward_plain if errors is None else fused_gnn_forward
+                    gnn_kw = {} if errors is None else {"errors": errors}
                 obj_kp = state[None, None].expand(Bc, spec.n_his, n_obj, 3)
 
             def step(states):
@@ -158,7 +169,7 @@ def make_batched_rollout(model: DynamicsPredictor, spec: RolloutSpec):
                     st_pad[:, :N] = states.transpose(1, 2).reshape(Bc, N, spec.n_his * 3)
                 with span("rollout.gnn"):
                     motion = gnn(packed, attrs_pad, action_pad, st_pad, g_pad, recv, send,
-                                 pstep=cfg.pstep)[:, :n_obj, :3]
+                                 pstep=cfg.pstep, **gnn_kw)[:, :n_obj, :3]
                     return states[:, -1, :n_obj] + torch.clamp(
                         motion, -cfg.motion_clamp, cfg.motion_clamp)
 
@@ -206,9 +217,11 @@ def make_batched_rollout(model: DynamicsPredictor, spec: RolloutSpec):
         with span("rollout.order"):
             B = act_seqs.shape[0]
             decoded, repeats = decode_action(act_seqs, spec.push_length)
-            packed = None
+            packed = errors = None
             if fused_route(spec, cfg, state.device, needs_grad):
                 packed = packed_for(state.device)
+                if spec.fused != "twin":  # the kernels: their index check's word
+                    errors = torch.zeros(1, dtype=torch.int32, device=state.device)
             nc = spec.sort_chunks
             sort = nc > 1 and B % nc == 0 and B >= 2 * nc
             if sort:
@@ -218,13 +231,16 @@ def make_batched_rollout(model: DynamicsPredictor, spec: RolloutSpec):
                 dec_s, rep_s = decoded[order], repeats[order]
                 chunk = B // nc
         if not sort:
-            pred_seq = roll_block(state, decoded, repeats, packed, needs_grad)
-            return {"state_seqs": pred_seq, "action_seqs": decoded}
-        preds = [roll_block(state, dec_s[c * chunk:(c + 1) * chunk],
-                            rep_s[c * chunk:(c + 1) * chunk], packed, needs_grad)
-                 for c in range(nc)]
-        with span("rollout.gather"):
-            pred_seq = torch.cat(preds, 0)[inv]
+            pred_seq = roll_block(state, decoded, repeats, packed, errors, needs_grad)
+        else:
+            preds = [roll_block(state, dec_s[c * chunk:(c + 1) * chunk],
+                                rep_s[c * chunk:(c + 1) * chunk], packed, errors, needs_grad)
+                     for c in range(nc)]
+            with span("rollout.gather"):
+                pred_seq = torch.cat(preds, 0)[inv]
+        if errors is not None:
+            (word,) = host_read("gnn_errors", errors)
+            raise_on_index_errors(word, node_pad(state.shape[0] + 1))
         return {"state_seqs": pred_seq, "action_seqs": decoded}
 
     return rollout

@@ -165,8 +165,10 @@ def test_plain_equals_interpreted_pallas_kernel(rng):
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-4)
 
 
-@pytest.mark.parametrize("which,bad", [("recv", 128), ("send", 200), ("recv", -2),
-                                       ("send", -7)])
+BAD_INDICES = [("recv", 128), ("send", 200), ("recv", -2), ("send", -7)]
+
+
+@pytest.mark.parametrize("which,bad", BAD_INDICES)
 def test_wrapper_refuses_edge_indices_out_of_range(rng, which, bad):
     # the kernels read node rows unchecked, so the wrapper checks them on
     # every device; here -1 slots alone pass
@@ -176,6 +178,43 @@ def test_wrapper_refuses_edge_indices_out_of_range(rng, which, bad):
     k = 4 if which == "recv" else 5
     ins[k] = ins[k].clone()
     ins[k][1, 5] = bad
+    with pytest.raises(ValueError, match="edge indices"):
+        tg.fused_gnn_forward(port_pack, *ins)
+
+
+def test_wrapper_with_an_error_word_reads_nothing_back(rng, monkeypatch):
+    port_pack = tg.pack_gnn_params(trained_tree(), n_his=3)
+    ins = list(map(torch.as_tensor, _inputs(rng, 2, 128, 30, 96, 80)))
+    reads = []
+    monkeypatch.setattr(tg, "host_read", lambda site, t: reads.append(site) or t.tolist())
+    before = dict(tg.CHECKS)
+    want = tg.fused_gnn_forward(port_pack, *ins)
+    errors = torch.zeros(1, dtype=torch.int32)
+    out = tg.fused_gnn_forward(port_pack, *ins, errors=errors)
+    assert torch.equal(out, want) and int(errors) == 0
+    assert reads == ["gnn_indices"]  # the call without the word alone
+    assert {k: tg.CHECKS[k] - before[k] for k in before} == {"host": 1, "device": 1}
+    for bad_word in (torch.zeros(1, dtype=torch.int64), torch.zeros(2, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="errors must be"):
+            tg.fused_gnn_forward(port_pack, *ins, errors=bad_word)
+
+
+@pytest.mark.parametrize("which,bad", BAD_INDICES)
+def test_wrapper_flags_edge_indices_out_of_range_in_the_error_word(rng, which, bad):
+    # with the word the call does not raise: the slot reads as empty, as the
+    # kernels read it, and its bit is set for the caller to raise on
+    port_pack = tg.pack_gnn_params(trained_tree(), n_his=3)
+    ins = list(map(torch.as_tensor, _inputs(rng, 2, 128, 30, 96, 80)))
+    k = 4 if which == "recv" else 5
+    emptied = list(ins)
+    ins[k], emptied[k] = ins[k].clone(), ins[k].clone()
+    ins[k][1, 5], emptied[k][1, 5] = bad, -1
+    errors = torch.zeros(1, dtype=torch.int32)
+    out = tg.fused_gnn_forward(port_pack, *ins, errors=errors)
+    assert int(errors) == tg.INDEX_ERROR_BITS[which]
+    assert torch.equal(out, tg.fused_gnn_forward(port_pack, *emptied))
+    with pytest.raises(ValueError, match=f"edge indices.*{which}"):
+        tg.raise_on_index_errors(int(errors), 128)
     with pytest.raises(ValueError, match="edge indices"):
         tg.fused_gnn_forward(port_pack, *ins)
 

@@ -131,6 +131,78 @@ def test_unordered_slots_and_refusals(cuda):
         assert G.LAUNCHES["gnn_forward"] == n0
 
 
+# A push step's chunk: 125 samples, rope (128 node slots, 504 edge slots) and
+# cloth (256, 1,200).
+CHUNKS = {"rope": (125, 128, 100, 504), "cloth": (125, 256, 150, 1200)}
+
+
+@pytest.mark.parametrize("layout", list(CHUNKS))
+def test_error_word_leaves_the_forward_bit_equal(cuda, layout):
+    B, n_pad, n_obj, E = CHUNKS[layout]
+    rng = np.random.default_rng(n_pad)
+    packed = G.pack_gnn_params(_random_tree(rng, 512, 3, layout), device=cuda)
+    ins = _inputs(rng, B, n_pad, n_obj, E, E - 40, 3, cuda)
+    errors = torch.zeros(1, dtype=torch.int32, device=cuda)
+    out = G.fused_gnn_forward(packed, *ins, errors=errors)
+    assert torch.equal(out, G.fused_gnn_forward(packed, *ins))
+    assert int(errors) == 0
+
+
+# An index at n_pad, below -1, or past every node row of the chunk.
+BAD_SLOTS = [("recv", "n_pad"), ("send", "n_pad"), ("recv", -2), ("send", -2),
+             ("recv", "past"), ("send", "past")]
+
+
+@pytest.mark.parametrize("which,bad", BAD_SLOTS)
+def test_error_word_flags_a_bad_slot_which_reads_as_empty(cuda, which, bad):
+    B, n_pad, n_obj, E = CHUNKS["rope"]
+    rng = np.random.default_rng(7)
+    packed = G.pack_gnn_params(_random_tree(rng, 512, 3, "rope"), device=cuda)
+    ins = _inputs(rng, B, n_pad, n_obj, E, E, 3, cuda)
+    k = 4 if which == "recv" else 5
+    bad = {"n_pad": n_pad, "past": B * n_pad + 7}.get(bad, bad)
+    broken, emptied = list(ins), list(ins)
+    broken[k], emptied[k] = ins[k].clone(), ins[k].clone()
+    broken[k][3, 100], emptied[k][3, 100] = bad, -1
+    errors = torch.zeros(1, dtype=torch.int32, device=cuda)
+    out = G.fused_gnn_forward(packed, *broken, errors=errors)
+    assert int(errors) == G.INDEX_ERROR_BITS[which]
+    assert torch.equal(out, G.fused_gnn_forward(packed, *emptied))
+    clean = G.fused_gnn_forward(packed, *ins)
+    others = torch.arange(B, device=cuda) != 3
+    assert torch.equal(out[others], clean[others])
+
+
+def test_rollout_raises_on_a_bad_edge_index_once_the_call_ends(cuda, monkeypatch):
+    from gsdx_torch.dynamics.model import ModelConfig
+    from gsdx_torch.dynamics.train import init_params
+    from gsdx_torch.plan import dynamics_rollout as DR
+
+    gen = torch.Generator().manual_seed(0)
+    roll = DR.make_batched_rollout(init_params(ModelConfig(), 0, cuda), DR.RolloutSpec())
+    state = (0.05 * torch.randn(100, 3, generator=gen)).to(cuda)
+    lo, hi = torch.tensor([-0.1, -0.1, -3.0, 2.0]), torch.tensor([0.1, 0.1, 3.0, 5.0])
+    acts = (lo + (hi - lo) * torch.rand(32, 1, 4, generator=gen)).to(cuda)
+    with torch.no_grad():
+        roll(state, acts)  # in range: no raise
+        build, steps = DR.construct_edge_indices_batch, []
+
+        def corrupted(*a, **kw):
+            recv, send = build(*a, **kw)
+            steps.append(None)
+            if len(steps) == 2:
+                send = send.clone()
+                send[1, 0] = 128
+            return recv, send
+
+        monkeypatch.setattr(DR, "construct_edge_indices_batch", corrupted)
+        n0 = G.LAUNCHES["gnn_forward"]
+        with pytest.raises(ValueError, match="edge indices.*send"):
+            roll(state, acts)
+    # every push step of the call launched its forward before the raise
+    assert len(steps) > 2 and G.LAUNCHES["gnn_forward"] - n0 == len(steps)
+
+
 # The GEMM's epilogues: (bias, residuals, relu, outputs), together every option.
 EPILOGUES = {
     "none": (False, 0, False, "f32"),

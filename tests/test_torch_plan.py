@@ -220,6 +220,55 @@ def test_rollout_bf16_operands_match_gsdx_module_rollout(rng, scene, monkeypatch
     assert not torch.equal(f32["state_seqs"], out["state_seqs"])
 
 
+def _kernel_route(monkeypatch):
+    """The rollout's kernel route on CPU tensors: `fused_gnn_forward`'s plain
+    version, each push step's indices checked into the call's error word."""
+    from gsdx_torch.plan import dynamics_rollout
+
+    monkeypatch.setattr(dynamics_rollout, "fused_route", lambda *a, **kw: True)
+    return dynamics_rollout
+
+
+def test_rollout_kernel_route_equals_the_bf16_twin(rng, scene, monkeypatch):
+    from gsdx_torch.kernels import gnn_forward as tg
+
+    acts = torch.as_tensor(_acts(rng, scene["state"], 16))
+    state = torch.as_tensor(scene["state"])
+    DR = _kernel_route(monkeypatch)
+    with torch.no_grad():
+        out = make_batched_rollout(scene["model"], RolloutSpec(**SPEC))(state, acts)
+        monkeypatch.setattr(DR, "gnn_forward_plain",
+                            functools.partial(tg.gnn_forward_plain, operands="bf16"))
+        twin = make_batched_rollout(scene["model"], RolloutSpec(**SPEC, fused="twin"))(
+            state, acts)
+    assert torch.equal(out["state_seqs"], twin["state_seqs"])
+
+
+def test_rollout_kernel_route_raises_on_bad_edge_indices_at_the_end_of_the_call(
+        rng, scene, monkeypatch):
+    from gsdx_torch.kernels import gnn_forward as tg
+
+    DR = _kernel_route(monkeypatch)
+    build, steps = DR.construct_edge_indices_batch, []
+
+    def corrupted(*a, **kw):
+        recv, send = build(*a, **kw)
+        steps.append(None)
+        if len(steps) == 2:  # one slot of the second push step
+            recv = recv.clone()
+            recv[0, 0] = 128
+        return recv, send
+
+    monkeypatch.setattr(DR, "construct_edge_indices_batch", corrupted)
+    roll = make_batched_rollout(scene["model"], RolloutSpec(**SPEC, sort_chunks=1))
+    acts = torch.as_tensor(_acts(rng, scene["state"], 8))
+    before = tg.CHECKS["device"]
+    with torch.no_grad(), pytest.raises(ValueError, match="edge indices.*recv"):
+        roll(torch.as_tensor(scene["state"]), acts)
+    # every push step ran before the raise
+    assert len(steps) > 2 and tg.CHECKS["device"] - before == len(steps)
+
+
 def test_rollout_module_path_matches_gsdx(rng, scene):
     acts = _acts(rng, scene["state"], 6)
     ref = j_rollout(JModel(JModelConfig()), JSpec(**SPEC, sort_chunks=1, fused="off"))(

@@ -211,6 +211,40 @@ def test_fused_gnn_forward_on_cpu_reads_the_indices_once_a_call(recorder):
     assert check["spans"]["read.gnn_indices"]["count"] == 1
 
 
+def test_kernel_route_rollout_reads_its_error_word_once_a_call(recorder, monkeypatch):
+    """The kernels' route on CPU tensors, with the push step's forward
+    wrapped by name as the MPPI benchmark's probe wraps it: every step's
+    indices are checked into the call's error word, read once a call."""
+    from gsdx_torch.kernels import gnn_forward as G
+    from gsdx_torch.plan import dynamics_rollout as DR
+
+    monkeypatch.setattr(DR, "fused_route", lambda *a, **kw: True)
+    seen, forward = [], DR.fused_gnn_forward
+
+    def probe(packed, attrs, action, state_t, g, recv, send, *a, **kw):
+        out = forward(packed, attrs, action, state_t, g, recv, send, *a, **kw)
+        kept = (attrs, action, state_t, g, recv, send, out)
+        seen.append((kept, [t.clone() for t in kept]))
+        return out
+
+    monkeypatch.setattr(DR, "fused_gnn_forward", probe)
+    gen = torch.Generator().manual_seed(4)
+    roll = make_batched_rollout(init_params(MODEL, 4, "cpu"), RolloutSpec(
+        max_nobj=12, max_nR=40, topk=3, max_repeat=5, sort_chunks=2))
+    state = 0.05 * torch.randn(12, 3, generator=gen)
+    before = dict(G.CHECKS)
+    for calls in (1, 2):
+        roll(state, _acts(8, 2, gen))
+        assert _reads("gnn_errors") == calls
+    assert _reads("gnn_indices") == 0
+    steps = sum(c["spans"]["rollout.step"]["count"] for c in _roots("rollout.chunk"))
+    assert steps >= 2 * 2 * 2 and len(seen) == steps
+    assert {k: G.CHECKS[k] - before[k] for k in before} == {"host": 0, "device": steps}
+    # what the probe kept is not written afterwards
+    for kept, copies in seen:
+        assert all(torch.equal(a, b) for a, b in zip(kept, copies))
+
+
 def test_mppi_iteration_root_holds_its_layers(recorder):
     gen = torch.Generator().manual_seed(2)
     model = init_params(MODEL, 2, "cpu")
